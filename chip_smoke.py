@@ -58,10 +58,11 @@ THROUGHPUT_BATCHES = 30
 PROFILED_BATCHES = 5
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 E2E_TOL = 1e-3
 # the device kernels of csrc/vq_assign.cu, as the profiler names them
-VQ_KERNEL_NAMES = ("void (anonymous namespace)::vq_score_kernel",
+VQ_KERNEL_NAMES = ("void (anonymous namespace)::vq_mma_kernel",
                    "void (anonymous namespace)::vq_finish_kernel")
 
 
@@ -95,12 +96,16 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def vq_bound_ms(n: int, c: int, k: int):
-    """Least time for the kernel's work: 2NKC f32 FMA operations against the
-    card's non-tensor f32 rate, and x, E, ||e||^2 read once plus idx and
-    counts written once against HBM bandwidth.  Returns (ops_ms, bytes_ms)."""
-    ops_ms = 2.0 * n * k * c / F32_FLOPS * 1e3
+    """Least time for the kernel's work.  The kernel does the 2NKC product as
+    three TF32 tensor-core products (3xTF32), so its operations bound is
+    3 * 2NKC at the card's dense TF32 rate; the f32 SIMT bound, 2NKC at the
+    non-tensor f32 rate, is the bound of an FMA kernel and is kept beside it.
+    Bytes: x, E, ||e||^2 read once plus idx and counts written once, at HBM
+    bandwidth.  Returns (ops_ms, bytes_ms, f32_simt_ms)."""
+    ops_ms = 3 * 2.0 * n * k * c / TF32_FLOPS * 1e3
     bytes_ms = (n * c * 4 + k * c * 4 + k * 4 + n * 4 + k * 4) / HBM_BYTES_PER_S * 1e3
-    return ops_ms, bytes_ms
+    f32_simt_ms = 2.0 * n * k * c / F32_FLOPS * 1e3
+    return ops_ms, bytes_ms, f32_simt_ms
 
 
 def profile_serving(pred, batches, card: str):
@@ -207,14 +212,16 @@ def compare_vq(name, x, cb, metric, vq_cuda, vq_assign_reference) -> dict:
     check(torch.equal(q_k[same], q_r[same]), f"{name}: quant differs on rows with the same idx")
     ms = cuda_ms(lambda: vq_cuda.vq_assign_cuda(x, cb, metric))
     plain_ms = cuda_ms(lambda: vq_assign_reference(x, cb, metric))
-    ops_ms, bytes_ms = vq_bound_ms(n, c, k)
+    ops_ms, bytes_ms, f32_simt_ms = vq_bound_ms(n, c, k)
     # max_abs_err: the largest f64 score gap between the code the kernel
     # chose and the code the plain version chose (0 where idx agree)
     return {"case": name, "n": n, "c": c, "k": k, "metric": metric,
             "near_ties": int(rows.numel()),
             "duplicate_rows": k - int(torch.unique(cb, dim=0).shape[0]),
             "max_abs_err": score_gap, "ms": ms, "plain_ms": plain_ms,
+            "tflops": 2.0 * n * k * c / ms * 1e-9,
             "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "f32_simt_bound_ms": max(f32_simt_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
@@ -355,11 +362,12 @@ def main() -> int:
         r = compare_vq(name, x, cb, metric, vq_cuda, vq_assign_reference)
         results.append(r)
         print(f"[kernel] vq_assign {name} N={r['n']} C={r['c']} K={r['k']} {metric}: "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: operations {r['ops_ms']:.4f}, "
-              f"bytes {r['bytes_ms']:.4f}); near-tie rows {r['near_ties']} "
-              f"(max f64 score gap {r['max_abs_err']:.3e}), duplicate codebook rows "
-              f"{r['duplicate_rows']} | {card}")
+              f"kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s of 2NKC), "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: 3xTF32 operations {r['ops_ms']:.4f}, bytes "
+              f"{r['bytes_ms']:.4f}; f32 SIMT bound {r['f32_simt_bound_ms']:.4f}); "
+              f"near-tie rows {r['near_ties']} (max f64 score gap {r['max_abs_err']:.3e}), "
+              f"duplicate codebook rows {r['duplicate_rows']} | {card}")
     tie = next(r for r in results if r["case"] == "tie")
     check(tie["near_ties"] == 0, "tie case: kernel and plain version disagree")
 
@@ -406,11 +414,13 @@ def main() -> int:
         "ms": sum(r["ms"] for r in main_path),
         "plain_ms": sum(r["plain_ms"] for r in main_path),
         "bound_ms": sum(r["bound_ms"] for r in main_path),
+        "f32_simt_bound_ms": sum(r["f32_simt_bound_ms"] for r in main_path),
         "bound_by": max(main_path, key=lambda r: r["bound_ms"])["bound_by"],
         # no single PyTorch call computes the fused argmin and the counts
         "library_ms": None,
         "shapes": [{key: r[key] for key in ("case", "n", "c", "k", "ms", "plain_ms", "bound_ms",
-                                            "near_ties", "max_abs_err")} for r in main_path],
+                                            "f32_simt_bound_ms", "near_ties", "max_abs_err")}
+                   for r in main_path],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -152,9 +152,100 @@ def test_kmeans_keeps_empty_bins_and_samples_without_replacement():
     assert means.shape == (4, 1) and int(bins.sum()) == 12
 
 
+def _tf32_rna(v):
+    """numpy emulation of PTX ``cvt.rna.tf32.f32``: round the f32 significand
+    to 10 explicit bits, to nearest with ties away from zero (add half of the
+    dropped last place to the magnitude bits, then drop the 13 low bits)."""
+    u = np.ascontiguousarray(v, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(v):
+    hi = _tf32_rna(v)
+    return hi, _tf32_rna(v - hi)  # v - hi is exact in f32
+
+
+def _dot_3xtf32(x, e):
+    """x (N, C) . e (K, C)^T as the kernel sums it: per 8-wide k step, the
+    f32 accumulator takes lo_x*hi_e, then hi_x*lo_e, then hi_x*hi_e, each as
+    one f32 rounding of 8 exact products (an m16n8k8 mma)."""
+    c8 = -(-x.shape[1] // 8) * 8
+    xh, xl = (np.pad(a, ((0, 0), (0, c8 - x.shape[1]))).astype(np.float64)
+              for a in _split_tf32(x))
+    eh, el = (np.pad(a, ((0, 0), (0, c8 - x.shape[1]))).astype(np.float64)
+              for a in _split_tf32(e))
+    acc = np.zeros((x.shape[0], e.shape[0]), np.float32)
+    for k0 in range(0, c8, 8):
+        s = slice(k0, k0 + 8)
+        for a, b in ((xl, eh), (xh, el), (xh, eh)):
+            acc = (acc.astype(np.float64) + a[:, s] @ b[:, s].T).astype(np.float32)
+    return acc
+
+
+def _3xtf32_bound(c):
+    """The head comment of csrc/vq_assign.cu: |dot_3xTF32 - x.e| is at most
+    this times sum_i |x_i e_i|."""
+    return 2.0**-20 + 3 * -(-c // 8) * 2.0**-23 * (1 + 2.0**-8)
+
+
+@pytest.mark.parametrize("c", [3, 512, 2048])
+def test_tf32_split_reconstructs_f32_within_2_to_minus_22(c):
+    rng = np.random.default_rng(c)
+    v = (rng.standard_normal((64, c)) * 10.0 ** rng.uniform(-3, 3, (64, c))).astype(np.float32)
+    hi, lo = _split_tf32(v)
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    resid = np.abs(v.astype(np.float64) - hi - lo)
+    assert (resid <= 2.0**-22 * np.abs(v.astype(np.float64))).all()
+    assert (np.abs(v.astype(np.float64) - hi) <= 2.0**-11 * np.abs(v.astype(np.float64))).all()
+
+
+@pytest.mark.parametrize("c", [3, 512, 2048])
+def test_3xtf32_dot_within_the_kernels_error_bound(c):
+    rng = np.random.default_rng(10 + c)
+    x = rng.standard_normal((16, c)).astype(np.float32)
+    e = rng.standard_normal((24, c)).astype(np.float32)
+    exact = x.astype(np.float64) @ e.astype(np.float64).T
+    mag = np.abs(x.astype(np.float64)) @ np.abs(e.astype(np.float64)).T
+    err = np.abs(_dot_3xtf32(x, e) - exact)
+    assert (err <= _3xtf32_bound(c) * mag).all()
+    # and it is an f32-grade product, not TF32's 2^-11
+    assert (err <= 2.0**-18 * mag).all()
+    assert np.abs(_tf32_rna(x).astype(np.float64) @ _tf32_rna(e).astype(np.float64).T
+                  - exact).max() > 2.0**-18 * mag.max()
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_3xtf32_scores_pick_the_plain_versions_idx_off_near_ties(metric):
+    x, cb = _inputs(64, 128, 256, metric, seed=8)
+    dot = _dot_3xtf32(x, cb)
+    if metric == "euclidean":
+        sq = torch.sum(torch.from_numpy(cb) ** 2, dim=-1).numpy()
+        idx = np.argmin(sq[None, :] - np.float32(2.0) * dot, axis=-1)
+    else:
+        idx = np.argmax(dot, axis=-1)
+    ref = tvq.vq_assign_reference(torch.from_numpy(x), torch.from_numpy(cb), metric)[0].numpy()
+    rows = np.nonzero(idx != ref)[0]
+    # the f32 certificate of chip_smoke.py::check_near_ties for each mismatch
+    xr = x[rows].astype(np.float64)
+    ea, eb = cb[idx[rows]].astype(np.float64), cb[ref[rows]].astype(np.float64)
+    dots = np.abs(xr * ea).sum(-1) + np.abs(xr * eb).sum(-1)
+    u, c = 2.0**-24, x.shape[1]
+    if metric == "euclidean":
+        sa = (ea * ea).sum(-1) - 2 * (xr * ea).sum(-1)
+        sb = (eb * eb).sum(-1) - 2 * (xr * eb).sum(-1)
+        tol = 2 * c * u * dots + c * u * ((ea * ea).sum(-1) + (eb * eb).sum(-1))
+    else:
+        sa, sb = -(xr * ea).sum(-1), -(xr * eb).sum(-1)
+        tol = c * u * dots
+    tol = tol + 2 * u * (np.abs(sa) + np.abs(sb))
+    assert (np.abs(sa - sb) <= tol).all()
+    assert rows.size <= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,c,k,metric", [(1000, 128, 256, "euclidean"), (100, 3, 5, "euclidean"),
-                                          (1000, 128, 256, "cosine")])
+                                          (1000, 128, 256, "cosine"),
+                                          (1001, 136, 200, "euclidean")])
 def test_kernel_matches_plain_version_on_the_card(n, c, k, metric):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode (run on the card)")

@@ -47,18 +47,18 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> str:
-    """Where the library for the current source and flags lives."""
-    with open(SOURCE, "rb") as f:
+def library_path(source: str = SOURCE) -> str:
+    """Where the library for ``source`` and the flags lives."""
+    with open(source, "rb") as f:
         h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"libvq_assign-{h}.so")
 
 
-def build() -> dict:
-    """Compile the kernel library unless it exists.  Returns
+def build(source: str = SOURCE) -> dict:
+    """Compile the kernel library from ``source`` unless it exists.  Returns
     ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's output
     (``-Xptxas=-v`` prints registers and shared memory per kernel)."""
-    path = library_path()
+    path = library_path(source)
     log_path = path + ".log"
     if os.path.exists(path):
         log = open(log_path).read() if os.path.exists(log_path) else ""
@@ -68,12 +68,12 @@ def build() -> dict:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{log}")
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n{log}")
         with open(log_path, "w") as f:
             f.write(log)
         os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
@@ -83,20 +83,24 @@ def build() -> dict:
     return {"path": path, "seconds": seconds, "built": True, "log": log}
 
 
+def load(path: str) -> ctypes.CDLL:
+    """Load a built library and declare ``vq_assign_launch``."""
+    lib = ctypes.CDLL(path)
+    # every pointer and the stream as c_void_p: an undeclared argument would
+    # be passed as a 32-bit int and cut the address
+    lib.vq_assign_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.vq_assign_launch.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build()["path"])
-            fn = lib.vq_assign_launch
-            # every pointer and the stream as c_void_p: an undeclared argument
-            # would be passed as a 32-bit int and cut the address
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build()["path"])
         return _lib
 
 
@@ -117,13 +121,16 @@ def _check(name: str, t: torch.Tensor):
 
 
 @torch.no_grad()
-def vq_assign_cuda(x: torch.Tensor, codebook: torch.Tensor, metric: str = "euclidean"):
+def vq_assign_cuda(x: torch.Tensor, codebook: torch.Tensor, metric: str = "euclidean",
+                   lib: ctypes.CDLL | None = None):
     """x (N, C), codebook (K, C), both f32 contiguous on one CUDA device ->
     (idx (N,) int32, quantized (N, C) f32, counts (K,) int32).
 
     The kernels write idx and counts through a 64-bit (score, code) key per
     row; ||e||^2 (euclidean) is a torch reduction before them and the exact
-    row gather an ``index_select`` after them, as in the JAX package."""
+    row gather an ``index_select`` after them, as in the JAX package.
+    ``lib`` is a library from ``load``; by default the one built from
+    ``SOURCE``."""
     global launches
     if metric not in ("euclidean", "cosine"):
         raise ValueError(f"unknown metric {metric!r}")
@@ -146,7 +153,8 @@ def vq_assign_cuda(x: torch.Tensor, codebook: torch.Tensor, metric: str = "eucli
             with torch.autocast("cuda", enabled=False):
                 cb_sq = torch.sum(codebook * codebook, dim=-1)
         best = torch.empty(n, dtype=torch.int64, device=x.device)  # the kernel fills it
-        lib = _library()
+        if lib is None:
+            lib = _library()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             rc = lib.vq_assign_launch(
