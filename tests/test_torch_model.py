@@ -15,8 +15,10 @@ import torch
 
 from vq_seg_tpu.models.modules.vector_quantizer import VectorQuantizer as JaxVQ
 from vq_seg_tpu.models.networks import make_model as jax_make_model
+from vq_seg_tpu_torch.losses import make_loss
 from vq_seg_tpu_torch.models.modules.vector_quantizer import VectorQuantizer, make_vq_module
 from vq_seg_tpu_torch.models.networks import make_model
+from vq_seg_tpu_torch.training import create_cps_state
 from vq_seg_tpu_torch.utils.convert import state_dict_from_flax
 
 torch.set_num_threads(1)
@@ -162,10 +164,11 @@ def test_what_is_not_ported_raises():
         VectorQuantizer(8, 4, distance="manhattan")
     with pytest.raises(ValueError):
         make_vq_module({"num_embeddings": [4, 4]}, [3, 8, 8, 8], 3)
-    model = make_model(MODEL_CFG, device="cpu")
-    x = torch.zeros(1, 3, 32, 32)
-    with pytest.raises(NotImplementedError, match="prototype"):
-        model(x, gt=torch.zeros(1, 32, 32, dtype=torch.int64), th=0.7, train=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_loss("focal_loss", 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_cps_state(MODEL_CFG, lambda step: 1e-4, encoder_weights="imagenet_swsl",
+                         device="cpu")
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_model(MODEL_CFG)

@@ -4,11 +4,14 @@ The plain version ``vq_assign_reference`` is held against the XLA path and
 against the Pallas kernel run through the Pallas interpreter, at the cases of
 ``tests/test_pallas_interpret.py``: idx and counts exact, quant bitwise.  The
 CUDA kernel itself is held against the plain version on the card by
-``chip_smoke.py`` and by the ``cuda``-marked test below, which needs no JAX:
-on a machine with a card and without JAX it runs alone with
+``chip_smoke.py`` and by the ``cuda``-marked tests below, which need no JAX
+(one of them takes a whole CPS training step on the kernel): on a machine
+with a card and without JAX they run alone with
 
     python -m pytest --noconftest -m cuda tests/test_torch_vq.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -258,3 +261,41 @@ def test_kernel_matches_plain_version_on_the_card(n, c, k, metric):
     assert vq_cuda.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cps_step_on_the_kernel_matches_the_plain_vq(monkeypatch):
+    """One f32 CPS step on the card (resnet18, K=8, 64x64, batch 2 + 2, TF32
+    off) from one post-init state, with VQ on the kernel and with VQ on the
+    plain version: 18 kernel launches, and every loss term within 1e-4
+    relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode (run on the card)")
+    from vq_seg_tpu_torch.losses import make_loss
+    from vq_seg_tpu_torch.models.modules import vector_quantizer
+    from vq_seg_tpu_torch.training import cps_init_phase, create_cps_state, make_cps_train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = {"name": "vqreptunet1x1v2", "params": {
+        "encoder_name": "resnet18", "num_classes": 3, "margin": 0.5, "scale": 30.0,
+        "vq_cfg": {"num_embeddings": [0, 0, 8, 8, 8], "distance": "euclidean",
+                   "kmeans_init": True}}}
+    rng = np.random.default_rng(8)
+    l_img, ul_img = (torch.from_numpy(rng.uniform(size=(2, 3, 64, 64)).astype(np.float32)).cuda()
+                     for _ in range(2))
+    l_t = torch.from_numpy(rng.integers(0, 3, size=(2, 64, 64))).cuda()
+    state = create_cps_state(cfg, lambda step: 1e-4, device="cuda")
+    cps_init_phase(state, l_img, l_t, 0.7)
+    plain_state = copy.deepcopy(state)
+    step = make_cps_train_step(make_loss("dice_loss", 3, ignore_index=255), num_classes=3)
+    before = vq_cuda.launches
+    _, kernel, _, _ = step(state, l_img, l_t, ul_img)
+    torch.cuda.synchronize()
+    assert vq_cuda.launches == before + 18
+    monkeypatch.setattr(vector_quantizer, "vq_assign", tvq.vq_assign_reference)
+    _, plain, _, _ = step(plain_state, l_img, l_t, ul_img)
+    assert vq_cuda.launches == before + 18
+    for key in ("loss", "cps_loss", "sup_loss_1", "sup_loss_2", "commitment_loss",
+                "prototype_loss"):
+        torch.testing.assert_close(kernel[key], plain[key], rtol=1e-4, atol=0.0)

@@ -6,7 +6,8 @@ with different corner conventions exist: ``resize_bilinear`` (half-pixel,
 resize) and ``upsample_bilinear_ac`` (``align_corners=True``: the x2 head
 upsample).  The JAX package's trace-time globals become constructor
 arguments: the compute dtype is ``torch.autocast`` and the decoder BN
-overrides are ``bn_eps``/``bn_momentum`` of the decoder.
+overrides are ``bn_eps``/``bn_momentum`` of the decoder.  Every BatchNorm
+is ``BatchNorm2d``, whose training-mode running variance follows flax.
 """
 from __future__ import annotations
 
@@ -59,10 +60,36 @@ class ConvPad(nn.Conv2d):
                 self.bias.zero_()
 
 
-def batch_norm(channels: int, eps: float = 1e-5, momentum: float = 0.1) -> nn.BatchNorm2d:
-    """BatchNorm2d with torch defaults (momentum is the torch new-stat
-    fraction; flax's 0.9 is torch's 0.1)."""
-    return nn.BatchNorm2d(channels, eps=eps, momentum=momentum)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-stat update.
+
+    In training mode torch blends the *unbiased* batch variance into
+    ``running_var``; flax's ``BatchNorm``, which the JAX package uses, blends
+    the *biased* one: ``ra = (1 - m) * ra + m * batch``.  The batch mean and
+    the normalisation are torch's own (cuDNN on the card).  The unbiased
+    variance comes out of the same batch_norm call, blended into a zeroed
+    scratch, and is rescaled by (n - 1) / n, so no extra pass over the
+    activations is made.  Eval mode, parameters and ``state_dict`` keys are
+    ``nn.BatchNorm2d``'s; ``num_batches_tracked`` is not advanced (a set
+    ``momentum`` never reads it)."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        scratch = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, self.running_mean, scratch, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        with torch.no_grad():  # scratch = m * unbiased var
+            self.running_var.mul_(1.0 - self.momentum).add_(scratch, alpha=(n - 1) / n)
+        return y
+
+
+def batch_norm(channels: int, eps: float = 1e-5, momentum: float = 0.1) -> BatchNorm2d:
+    """BatchNorm with torch defaults (momentum is the torch new-stat
+    fraction; flax's 0.9 is torch's 0.1) and flax's running-variance
+    update."""
+    return BatchNorm2d(channels, eps=eps, momentum=momentum)
 
 
 class ConvBNReLU(nn.Module):
@@ -90,6 +117,17 @@ def resize_bilinear(x, size: Tuple[int, int]):
     ``jax.image.resize(..., "bilinear", antialias=False)``."""
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
                          antialias=False)
+
+
+def resize_nearest(x, size: Tuple[int, int]):
+    """Nearest resize of the last two dims with torch's floor indexing,
+    ``src = floor(dst * in / out)`` in f64, as the JAX package's
+    ``resize_nearest`` gathers; works on integer label maps too."""
+    h, w = x.shape[-2:]
+    oh, ow = size
+    iy = torch.floor(torch.arange(oh, device=x.device, dtype=torch.float64) * (h / oh)).long()
+    ix = torch.floor(torch.arange(ow, device=x.device, dtype=torch.float64) * (w / ow)).long()
+    return x.index_select(-2, iy).index_select(-1, ix)
 
 
 def upsample_bilinear_ac(x, scale: Optional[int] = None, size: Optional[Tuple[int, int]] = None):

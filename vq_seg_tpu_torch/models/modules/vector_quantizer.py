@@ -6,7 +6,9 @@
     the code path and the commitment loss detaches the quantized value, so
     it receives no gradient and stays at its k-means init.
   * the k-means init is an explicit phase, ``init_codebook_(x, generator)``,
-    run once on a real batch.
+    run once on a real batch: alone (serving, eval-mode features) or inside
+    a forward with ``init_codebook=True`` (training, on the features of a
+    train-mode encoder).
   * ``make_vq_module``: an int or a per-stage list ``num_embeddings``, where
     0 means the stage passes through (``VQIdentity``).
 
@@ -30,7 +32,7 @@ from ...ops.vq import (METRICS, code_usage_percent, commitment_loss, cosine_prep
 class VQIdentity(nn.Module):
     """Stage pass-through for num_embeddings == 0."""
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, init_codebook: bool = False, generator=None):
         return x, None, None, None
 
     def init_codebook_(self, x, generator):
@@ -81,8 +83,14 @@ class VectorQuantizer(nn.Module):
                               use_cosine_sim=self.distance == "cosine", generator=generator)
         self.embedding.copy_(means)
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, init_codebook: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``init_codebook=True`` first runs the init phase on this ``x``
+        (the features of the forward's own BN mode), then quantizes with the
+        new codebook."""
         b, _, h, w = x.shape
+        if init_codebook:
+            self.init_codebook_(x.detach(), generator)
         # the assignment is f32 whatever autocast says: a bf16 product would
         # change which code wins
         with torch.autocast(x.device.type, enabled=False):

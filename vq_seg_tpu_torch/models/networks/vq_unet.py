@@ -4,8 +4,9 @@
 
 encoder stages[1:] -> per-stage VQ (commitment loss summed and divided by
 the number of stages) -> UnetDecoder -> bias-free 1x1 head -> x2
-align-corners upsample.  The prototype loss belongs to the training slice;
-in eval the network returns ``proto = 0``.
+align-corners upsample.  In training with ``gt`` the prototype loss
+(``ReliablePrototypeLossv2``) runs on the decoder output before the head;
+otherwise the network returns ``proto = 0``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch.nn as nn
 from ..encoders import make_encoder
 from ..layers import ConvPad, torch_conv_default, upsample_bilinear_ac
 from ..modules.decoder import UnetDecoder
+from ..modules.prototype import ReliablePrototypeLossv2
 from ..modules.vector_quantizer import make_vq_module
 from . import register
 
@@ -55,13 +57,19 @@ class VQUnetCore(nn.Module):
         for vq, f in zip(self.codebooks, features):
             vq.init_codebook_(f, generator)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, init_codebook: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``train`` selects the STE and the commitment loss; the BN mode is
+        the module's own (``.train()``/``.eval()``).  ``init_codebook=True``
+        runs each VQ stage's k-means on its features in this forward, from
+        ``generator``, stage by stage from the shallowest."""
         features = list(self.encoder(x)[1:])
         commit = x.new_zeros((), dtype=torch.float32)
         usages = []
         if self.codebooks is not None:
             for i, vq in enumerate(self.codebooks):
-                q, _idx, c_loss, usage = vq(features[i], train=train)
+                q, _idx, c_loss, usage = vq(features[i], train=train,
+                                            init_codebook=init_codebook, generator=generator)
                 features[i] = q
                 if c_loss is not None:
                     commit = commit + c_loss
@@ -75,9 +83,9 @@ class VQUnetCore(nn.Module):
 
 @register("vqreptunet1x1v2")
 class VQRePTUnet1x1v2(nn.Module):
-    """Flagship: reflect-padded encoder, bias-free 1x1 head, x2 upsample.
-    ``forward(x, gt=None, th=None, train=False)`` -> (out, commit, usage,
-    proto)."""
+    """Flagship: reflect-padded encoder, bias-free 1x1 head, x2 upsample and
+    the confidence-masked prototype loss.  ``forward(x, gt=None, th=None,
+    train=False, ...)`` -> (out, commit, usage, proto)."""
 
     def __init__(self, encoder_name: str, num_classes: int, vq_cfg, margin: float = 1.5,
                  scale: float = 1.0, use_feature: bool = False,
@@ -86,9 +94,8 @@ class VQRePTUnet1x1v2(nn.Module):
                  upsampling: int = 2, pt_init: str = "kmeans", bn_eps: float = 1e-5,
                  bn_momentum: float = 0.1, generator: Optional[torch.Generator] = None):
         super().__init__()
-        # margin, scale, use_feature and pt_init configure the prototype loss
-        # of the training slice; encoder_weights names pretrained weights that
-        # are never fetched (the weights come from a checkpoint)
+        # encoder_weights names pretrained weights that are never fetched:
+        # the weights come from a checkpoint or from create_cps_state
         self.num_classes = num_classes
         self.upsampling = upsampling
         self.core = VQUnetCore(encoder_name, vq_cfg, in_channels, decoder_channels, depth,
@@ -97,18 +104,29 @@ class VQRePTUnet1x1v2(nn.Module):
         dec_ch = self.core.decoder_channels
         self.segmentation_head = ConvPad(dec_ch[-1], num_classes, 1, 1, 0, bias=False,
                                          init=torch_conv_default, generator=generator)
+        self.prototype_loss = ReliablePrototypeLossv2(
+            num_classes, dec_ch[-1], pt_init, use_feature, scale=scale, margin=margin,
+            generator=generator)
 
     def init_codebook_(self, x: torch.Tensor, generator: torch.Generator):
         self.core.init_codebook_(x, generator)
 
-    def forward(self, x, gt=None, th=None, train: bool = False):
-        if train and gt is not None:
-            raise NotImplementedError(
-                "the prototype loss is not ported yet (ROADMAP.md, queue 1, "
-                "'Prototype loss')")
-        dec, commit, usage = self.core(x, train=train)
+    def forward(self, x, gt=None, th=None, train: bool = False, init_codebook: bool = False,
+                init_protos: bool = False, return_features: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``gt``: (N, H, W) labels or the other model's (N, C, H, W) score
+        map, used with ``train``; ``th`` masks a score map's pixels.
+        ``init_codebook``/``init_protos`` run the k-means init phases in this
+        forward from ``generator``.  ``return_features`` returns the decoder
+        output in place of the prototype loss."""
+        dec, commit, usage = self.core(x, train=train, init_codebook=init_codebook,
+                                       generator=generator)
         out = self.segmentation_head(dec)
+        proto = x.new_zeros((), dtype=torch.float32)
+        if train and gt is not None and not return_features:
+            proto = self.prototype_loss(dec, gt, th, init_protos=init_protos, generator=generator)
         if self.upsampling > 1:
             out = upsample_bilinear_ac(out, scale=self.upsampling)
-        proto = x.new_zeros((), dtype=torch.float32)
+        if return_features:
+            return out, commit, usage, dec
         return out, commit, usage, proto

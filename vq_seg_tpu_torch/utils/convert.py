@@ -13,10 +13,14 @@ The tree comes as nested dicts of numpy arrays (the caller does
   * the head is ``params/segmentation_head/Conv_0/kernel``;
   * codebooks ``codebook/core/VectorQuantizer_{n}/embedding`` are numbered
     over the VQ stages only, so ``num_embeddings`` (the model's
-    ``vq_cfg.num_embeddings``) says which stage each one belongs to.
+    ``vq_cfg.num_embeddings``) says which stage each one belongs to;
+  * the prototype table ``params/prototype_loss/embedding`` is
+    ``prototype_loss.embedding``.  A tree from ``init`` without ``gt`` has
+    none; the port's prototype module then keeps its drawn table on a strict
+    load (the training init phase overwrites it).
 
-A missing ``prototype_loss`` is fine: ``init`` without ``gt`` creates none,
-and the port's eval network has none.
+``cps_state_from_flax`` loads both models of a JAX ``CPSTrainState`` into a
+port ``CPSTrainState``.
 """
 from __future__ import annotations
 
@@ -74,6 +78,8 @@ def state_dict_from_flax(variables: Mapping,
                 ds[block][cbr]["BatchNorm_0"]["BatchNorm_0"])
 
     _conv(sd, "segmentation_head", params["segmentation_head"]["Conv_0"])
+    if "prototype_loss" in params:
+        sd["prototype_loss.embedding"] = _t(params["prototype_loss"]["embedding"])
 
     codebooks = variables.get("codebook", {}).get("core", {})
     stages = [i for i, k in enumerate(num_embeddings) if k > 0]
@@ -83,3 +89,15 @@ def state_dict_from_flax(variables: Mapping,
     for n, stage in enumerate(stages):
         sd[f"core.codebooks.{stage}.embedding"] = _t(codebooks[f"VectorQuantizer_{n}"]["embedding"])
     return sd
+
+
+def cps_state_from_flax(state, state_numpy, num_embeddings: Sequence[int] = (0, 0, 512, 512, 512)):
+    """Fill ``state.model_1``/``model_2`` (a port ``CPSTrainState``) from a
+    JAX ``CPSTrainState`` whose leaves are numpy arrays, strictly, and take
+    its step count.  Optimizer moments are not carried: the port's
+    optimizers keep their own state.  Returns ``state``."""
+    for model, variables in ((state.model_1, state_numpy.variables_1),
+                             (state.model_2, state_numpy.variables_2)):
+        model.load_state_dict(state_dict_from_flax(variables, num_embeddings))
+    state.step = int(np.asarray(state_numpy.step))
+    return state
