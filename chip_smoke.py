@@ -35,10 +35,10 @@ check does not hold:
    ``cps_init_phase`` -> ``make_cps_train_step``) with the config's loss
    weights, criterion, LR schedule, ``init_weights`` and bf16 autocast,
    batch 4 labeled + 4 unlabeled, random weights from a seed (pretrained
-   encoders cannot be fetched).  The init phase, then 3 warm-up and 10
+   encoders cannot be fetched).  The init phase, then 3 warm-up and 6
    timed steps on distinct synthetic batches, each ended by a fetch of the
    loss: p50/p90 ms per step, img/s (8 images per step), every loss term,
-   the peak memory and a profile of 5 more steps.  The kernel's launch
+   the peak memory and a profile of 3 more steps.  The kernel's launch
    count must be 18 per step (6 forwards x 3 VQ stages); losses finite,
    parameters and BN running stats changed, codebooks bitwise unchanged.
    The kernel is held against its plain version at the three shapes of a
@@ -63,14 +63,14 @@ check does not hold:
    times, the driver's ms per step against phase 6's p50 and the
    checkpoints' bytes and seconds are printed.  The kernel is held
    against its plain version at the evaluation forward's shapes (batch
-   1).  The tree stays for phases 8 to 11 and is deleted after them.
+   1).  The tree stays for phases 8 to 12 and is deleted after them.
 8. the ``reptcps`` family at full width: ``config/vqreptunet1x1.json``
    (resnet50, K=512, 448x448) in f32, as the JAX driver runs it, batch 4+4
    at drop percent 80, random weights from a seed.  The phase runs under
    PyTorch's default TF32 flags (cuDNN may use TF32), so the times are
    those of the trainer's own setting: every forward of the step must see
    cuDNN's and cuBLAS's TF32 off (``device.full_f32``).  The init phase (6
-   launches), 3 warm-up, 6 timed and 3 profiled steps (18 launches
+   launches), 2 warm-up, 4 timed and 2 profiled steps (18 launches
    each), each ended by a loss fetch: p50/p90 ms, img/s, peak memory,
    device time per step; parameters changed except the detached
    prototype tables, codebooks unchanged.  One f32 step from the
@@ -80,8 +80,8 @@ check does not hold:
    percentile masks of the two runs disagree printed.  One step each of
    ``vqreptunet``, ``vqreeuptunet``, ``vqretemptunet`` and
    ``vqreptunetdouble1x1`` (6 + 18 launches, finite losses).  Then
-   ``train_rept_cps`` for 2 epochs of 4 steps on phase 7's tree, test
-   every epoch: exactly 6 + 18 x 8 + 3 x 4 x 2 = 174 launches, the
+   ``train_rept_cps`` for 1 epoch of 4 steps on phase 7's tree, test
+   every epoch: exactly 6 + 18 x 4 + 3 x 4 = 90 launches, the
    contract keys of ``0ep.ckpt`` and ``last.ckpt``, the from-scratch
    warning.
 9. the supervised baseline at full width, bf16 as the configs set it:
@@ -96,9 +96,9 @@ check does not hold:
    f32 as the JAX drivers run them, under PyTorch's default TF32 flags
    (every forward must see TF32 off): ``config/vqcanet.json`` (resnet50,
    CCA at the bottleneck, K=512, 512², batch 4+4) through
-   ``plain_init_phase`` (6 launches), 3 warm-up, 10 timed and 3 profiled
+   ``plain_init_phase`` (6 launches), 2 warm-up, 5 timed and 2 profiled
    steps (12 launches each): p50/p90, peak memory, device time per step;
-   ``vqcanet_obj_loss.json`` likewise with 2 warm-up and 4 timed steps;
+   ``vqcanet_obj_loss.json`` likewise with 1 warm-up and 3 timed steps;
    each the kernel step against the plain VQ (loss terms within 1e-4,
    gradients within 1e-3).  One step of each of the 16 shipped
    ``plaincps``/``objcps`` configs at its own width and resize with its
@@ -106,29 +106,50 @@ check does not hold:
    config 2, ``vqsegheadnet`` 4) and its peak memory; the kernel against
    its plain version at the new shapes (ConvNeXt-base's, ``vqatunet``'s
    256², the K=3 head's (200704, 32, 3), a K=3 and a 130-code case).
-   Then ``train_plain_cps`` for 2 epochs (126 launches) and
+   Then ``train_plain_cps`` for 1 epoch (66 launches) and
    ``train_obj_cps`` for 1 (66) on phase 7's tree, the test CLI's sweep
    (24) and ``Predictor.from_checkpoint`` (3).
 11. ``vqpt`` and ``easyhard`` with the (x, gt) networks at full width, f32
    as the JAX drivers run them, under PyTorch's default TF32 flags (every
    forward must see TF32 off): ``config/vq_pt_unet.json`` (``vqptunet``,
    resnet50, K=512, 448², batch 4+4) through ``vqpt_init_phase`` (6
-   launches), 3 warm-up, 8 timed and 3 profiled steps (18 launches each:
+   launches), 2 warm-up, 5 timed and 2 profiled steps (18 launches each:
    2 pseudo and 4 train forwards): p50/p90, peak memory, device time per
-   step; ``vq_pt_unet_easyhard.json`` (512²) likewise with 2 warm-up and 4
+   step; ``vq_pt_unet_easyhard.json`` (512²) likewise with 1 warm-up and 3
    timed steps, its masks and flips drawn as the driver draws them; each
    the kernel step against the plain VQ (loss terms within 1e-4,
    gradients within 1e-3; easyhard with one fixed box and a width flip).
    One step of each of the other 5 shipped ``vqpt`` configs at its own
    width and resize (6 + 18 launches) with its peak memory.  Then, on
-   phase 7's tree, ``train_vqpt_cps`` for 2 epochs (174 launches), a
+   phase 7's tree, ``train_vqpt_cps`` for 1 epoch (90 launches), a
    ``vqpt`` epoch with ``train.pretrained`` from the files ``save_vqvae``
    wrote of its model 1 (90; the encoder's parameters bitwise as loaded
    after it, its running statistics moved), ``train_easyhard_cps`` for 1
    epoch (78, no evaluation), the test CLI's sweep (24) and
    ``Predictor.from_checkpoint`` (3).  Each expected count is derived from
    the config's VQ stages, and the measured counts are printed.
-12. one ``{"kernels": [...]}`` JSON line, the card line, and last
+12. ``angularv3``, ``supconcps``, ``semiweed`` and ``selfsup`` at full
+   width, f32 as the JAX drivers run them, under PyTorch's default TF32
+   flags (every forward must see TF32 off):
+   ``config/vqreptunetangularv3.json`` (resnet50, K=512, 448², batch 4+4)
+   and ``sup_con_loss.json`` (512²) through their init phases (6 launches),
+   1 warm-up, 3 timed and 1 profiled step (18 launches each; peak memory
+   printed), each with the kernel step against the plain VQ (loss terms
+   within 1e-6 relative, gradients within 1e-4); one ``reptcps`` step of
+   ``vqreptunetangular.json`` (6 + 18, and its kernel step likewise);
+   ``semiweednet.json`` (448², batch 4: no launch) and
+   ``vqvaev2_selfsup.json`` (448², batch 4: 3 at init, 3 per step), 1
+   warm-up, 3 timed and 1 profiled step each.  Then, on phase 7's tree,
+   one epoch of each driver (``train_angularv3_cps``, ``train_supcon_cps``
+   and ``train_rept_cps`` of ``vqreptunetangular.json``: 90 launches each;
+   ``train_semiweed``: 0, ``last.ckpt`` = ``{model_1, epoch,
+   optimizer_1}``; ``train_selfsup`` over the 24 train images: 3 + 3 x 6),
+   a ``train_vqpt_cps`` epoch with ``train.pretrained`` naming the files
+   the selfsup run wrote (90; its encoder's parameters bitwise as loaded,
+   its codebooks the selfsup run's), the test CLI and
+   ``Predictor.from_checkpoint`` on the angularv3 run's ``last.ckpt`` (12,
+   3).
+13. one ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -167,9 +188,10 @@ HBM_BYTES_PER_S = 3.35e12
 E2E_TOL = 1e-3
 TRAIN_BATCH = 4  # labeled, and as many unlabeled
 TRAIN_WARMUP = 3
-# 10 timed steps leave 1 sample above the p90 that is reported
-TRAIN_TIMED = 10
-TRAIN_PROFILED = 5
+# timed and profiled samples are cut phase by phase to keep the script's
+# command time under 420 s with phase 12
+TRAIN_TIMED = 6
+TRAIN_PROFILED = 3
 VQ_PER_STEP = 18  # 6 forwards x 3 VQ stages
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
@@ -179,19 +201,22 @@ LOSS_TERMS = ("loss", "cps_loss", "sup_loss_1", "sup_loss_2", "commitment_loss",
 DRIVER_WH = (1296, 966)
 DRIVER_LABELLED, DRIVER_UNLABELLED, DRIVER_TEST = 8, 16, 4
 DRIVER_EPOCHS = 2
+# phases 8, 10 and 11 run their drivers for one epoch (phase 7's resume
+# needs two)
+VARIANT_DRIVER_EPOCHS = 1
 # phase 8: the reptcps family, f32 as the JAX driver runs it
 REPT_CONFIG = os.path.join(ROOT, "config", "vqreptunet1x1.json")
 REPT_SIBLINGS = ("vqreptunet", "vqreeuptunet", "vqretemptunet", "vqreptunetdouble1x1")
 REPT_DROP = 80.0
-REPT_WARMUP, REPT_TIMED, REPT_PROFILED = 3, 6, 3
+REPT_WARMUP, REPT_TIMED, REPT_PROFILED = 2, 4, 2
 # phase 9: the supervised baseline; (config, kernel launches per step)
 SUP_CONFIGS = (("only_sup_kmeans", 3), ("CWFID_Unet", 0))
 SUP_WARMUP, SUP_TIMED, SUP_PROFILED = 3, 6, 3
 # phase 10: plaincps / objcps with the attention networks, f32 as the JAX
 # drivers run them; config -> VQ launches per forward
 PLAIN_CONFIG, OBJ_CONFIG = "vqcanet", "vqcanet_obj_loss"
-PLAIN_WARMUP, PLAIN_TIMED, PLAIN_PROFILED = 3, 10, 3
-OBJ_WARMUP, OBJ_TIMED = 2, 4
+PLAIN_WARMUP, PLAIN_TIMED, PLAIN_PROFILED = 2, 5, 2
+OBJ_WARMUP, OBJ_TIMED = 1, 3
 PLAIN_CONFIGS = {"vqcanet": 3, "vqcanet_obj_loss": 3, "cps_vqv2": 3, "cps_vqv2_kmeans_init": 3,
                  "cps_vqv2_kmeans_with_imagenet_weights": 3, "cps_vqv2_match": 3, "vq_": 3,
                  "vqatunet": 3, "vqcanetv2": 3, "vqcanetv3": 3, "vqcanetv4": 3,
@@ -206,10 +231,22 @@ OBJ_TERMS = ("loss", "cps_loss", "sup_loss", "obj_loss", "commitment_loss")
 # phase 11: vqpt / easyhard with the (x, gt) networks, f32 as the JAX
 # drivers run them
 VQPT_CONFIG, EASYHARD_CONFIG = "vq_pt_unet", "vq_pt_unet_easyhard"
-VQPT_WARMUP, VQPT_TIMED, VQPT_PROFILED = 3, 8, 3
-EASYHARD_WARMUP, EASYHARD_TIMED = 2, 4
+VQPT_WARMUP, VQPT_TIMED, VQPT_PROFILED = 2, 5, 2
+EASYHARD_WARMUP, EASYHARD_TIMED = 1, 3
 VQPT_CONFIGS = ("vq_eu_pt_unet", "vq_nedpt_unet", "vqash", "vqash_deep", "vqashv2")
 EASYHARD_TERMS = ("loss", "cps_loss", "sup_loss", "commitment_loss", "prototype_loss")
+# phase 12: angularv3, supconcps, the vqreptunetangular reptcps step,
+# semiweed and selfsup, f32 as the JAX drivers run them
+ANGULAR_CONFIG, SUPCON_CONFIG = "vqreptunetangularv3", "sup_con_loss"
+ANGULAR_REPT_CONFIG, SEMIWEED_CONFIG, SELFSUP_CONFIG = ("vqreptunetangular", "semiweednet",
+                                                       "vqvaev2_selfsup")
+SLICE_WARMUP, SLICE_TIMED, SLICE_PROFILED = 1, 3, 1
+# the kernel step against the plain VQ, near-tie rows given the kernel's code
+SLICE_LOSS_TOL, SLICE_GRAD_TOL = 1e-6, 1e-4
+ANGULAR_TERMS = LOSS_TERMS
+SUPCON_TERMS = ("loss", "cps_loss", "sup_loss", "sup_con_loss", "commitment_loss")
+SEMIWEED_TERMS = ("loss", "ce_loss", "dc_loss")
+SELFSUP_TERMS = ("loss", "recon_loss", "commitment_loss")
 # the device kernels of csrc/vq_assign.cu, as the profiler names them
 VQ_KERNEL_NAMES = ("void (anonymous namespace)::vq_mma_kernel",
                    "void (anonymous namespace)::vq_finish_kernel")
@@ -1056,7 +1093,7 @@ def rept_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: 
     # the driver on phase 7's tree
     run_cfg = copy.deepcopy(cfg)
     run_cfg.train.update(data_dir=root, save_dir=os.path.join(root, "runs_reptcps"),
-                         num_epochs=DRIVER_EPOCHS, test_every=1)
+                         num_epochs=VARIANT_DRIVER_EPOCHS, test_every=1)
     run_cfg.test.update(data_dir=root, save_dir=os.path.join(root, "test_reptcps"))
     steps = DRIVER_UNLABELLED // tc.batch_size
     history = []
@@ -1069,10 +1106,11 @@ def rept_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: 
     launches_driver = vq_cuda.launches
     check(sum("FROM SCRATCH" in str(w.message) for w in caught) == 1,
           "expected one from-scratch warning from the reptcps driver")
-    expect = 6 + VQ_PER_STEP * steps * DRIVER_EPOCHS + 3 * DRIVER_TEST * DRIVER_EPOCHS
+    epochs = VARIANT_DRIVER_EPOCHS
+    expect = 6 + VQ_PER_STEP * steps * epochs + 3 * DRIVER_TEST * epochs
     check(launches_driver == expect,
           f"train_rept_cps launched the kernel {launches_driver} times, expected {expect}")
-    check([h["epoch"] for h in history] == list(range(DRIVER_EPOCHS)), f"epochs {history}")
+    check([h["epoch"] for h in history] == list(range(epochs)), f"epochs {history}")
     for h in history:
         check(all(np.isfinite(h[k]) for k in LOSS_TERMS) and 0.0 <= h["test_miou"] <= 1.0,
               f"reptcps epoch {h}")
@@ -1081,7 +1119,7 @@ def rept_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: 
     for name in ("0ep.ckpt", "last.ckpt"):
         keys = set(ckpoints.load_full(os.path.join(ck_dir, name)))
         check(keys == contract, f"reptcps {name} keys {sorted(keys)}")
-    print(f"[rept-driver] train_rept_cps: {DRIVER_EPOCHS} epochs x {steps} steps, f32, batch "
+    print(f"[rept-driver] train_rept_cps: {epochs} epochs x {steps} steps, f32, batch "
           f"{tc.batch_size}+{tc.batch_size}, drop percent "
           f"{[h['drop_percent'] for h in history]}, {launches_driver} vq_assign launches (6 init "
           f"+ {VQ_PER_STEP} per step + 3 per test image); epochs "
@@ -1374,10 +1412,10 @@ def plain_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root:
               f"({r['bound_by']}; f32 SIMT bound {r['f32_simt_bound_ms']:.4f}); near-tie rows "
               f"{r['near_ties']} (max f64 score gap {r['max_abs_err']:.3e}) | {card}")
 
-    # the drivers on phase 7's tree: plaincps for 2 epochs, objcps for 1
+    # the drivers on phase 7's tree, one epoch each
     test_imgs = DRIVER_TEST
     for name, mode, train_fn, epochs in ((PLAIN_CONFIG, "plaincps", train_plain_cps,
-                                          DRIVER_EPOCHS),
+                                          VARIANT_DRIVER_EPOCHS),
                                          (OBJ_CONFIG, "objcps", train_obj_cps, 1)):
         cfg = load_config(os.path.join(ROOT, "config", f"{name}.json"))
         cfg.train.update(data_dir=root, save_dir=os.path.join(root, f"runs_{mode}"),
@@ -1616,7 +1654,7 @@ def vqpt_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: 
         del st
         torch.cuda.empty_cache()
 
-    # the drivers on phase 7's tree: vqpt for 2 epochs, then a pretrained
+    # the drivers on phase 7's tree: vqpt for one epoch, then a pretrained
     # vqpt epoch from the VQ-VAE files of its model 1, then easyhard for 1
     test_imgs = DRIVER_TEST
     cfg = load_config(os.path.join(ROOT, "config", f"{VQPT_CONFIG}.json"))
@@ -1652,8 +1690,9 @@ def vqpt_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: 
         return state, history, vq_cuda.launches, scratch, ck_dir
 
     # init (2 forwards), 6 forwards per step, 1 per test image and epoch
-    state, history, launches, scratch, ck_dir = drive(train_vqpt_cps, cfg, "vqpt", DRIVER_EPOCHS)
-    expect = per_fwd * (2 + 6 * steps * DRIVER_EPOCHS + test_imgs * DRIVER_EPOCHS)
+    epochs = VARIANT_DRIVER_EPOCHS
+    state, history, launches, scratch, ck_dir = drive(train_vqpt_cps, cfg, "vqpt", epochs)
+    expect = per_fwd * (2 + 6 * steps * epochs + test_imgs * epochs)
     check(launches == expect, f"train_vqpt_cps launched the kernel {launches} times, not {expect}")
     check(scratch == 1, "expected one from-scratch warning from the vqpt driver")
     check(all(np.isfinite(h[k]) for h in history for k in LOSS_TERMS)
@@ -1663,8 +1702,8 @@ def vqpt_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: 
     # the pretrained, frozen-encoder flow from model 1's encoder and codebooks
     vqvae_dir = os.path.join(root, "vqvae")
     os.makedirs(vqvae_dir)
-    ckpoints.save_vqvae(state.model_1, DRIVER_EPOCHS - 1, vqvae_dir)
-    files = {part: os.path.join(vqvae_dir, f"{DRIVER_EPOCHS - 1}ep_{part}.ckpt")
+    ckpoints.save_vqvae(state.model_1, epochs - 1, vqvae_dir)
+    files = {part: os.path.join(vqvae_dir, f"{epochs - 1}ep_{part}.ckpt")
              for part in ("encoder", "codebook")}
     del state
     torch.cuda.empty_cache()
@@ -1727,6 +1766,325 @@ def vqpt_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: 
           f"vq_assign launches, {sweep_s:.1f} s; Predictor.from_checkpoint(last.ckpt): batch "
           f"{cfg.train.batch_size}, labels {sorted(int(v) for v in np.unique(labels))}, "
           f"{out['vqpt_serve']} launches | {card}")
+    del pred
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: str) -> dict:
+    """Phase 12: ``angularv3``, ``supconcps``, the ``reptcps`` step of
+    ``vqreptunetangular``, ``semiweed`` and ``selfsup`` at full width, f32
+    as the JAX drivers run them.  Returns the launches of each path and the
+    timings."""
+    import warnings
+
+    from vq_seg_tpu_torch import load_config
+    from vq_seg_tpu_torch import test as test_cli
+    from vq_seg_tpu_torch.device import full_f32
+    from vq_seg_tpu_torch.serving import Predictor
+    from vq_seg_tpu_torch.losses import make_loss
+    from vq_seg_tpu_torch.training import (cps_init_phase, create_cps_state, make_lr_schedule,
+                                           make_rept_cps_train_step, make_selfsup_train_step,
+                                           make_semiweed_train_step, semiweed_draws,
+                                           train_angularv3_cps, train_rept_cps, train_selfsup,
+                                           train_semiweed, train_supcon_cps, train_vqpt_cps,
+                                           vqpt_init_phase, vqpt_step)
+    from vq_seg_tpu_torch.training.cps import model_cfg_with_bn
+    from vq_seg_tpu_torch.training.supervised import create_state, init_phase
+    from vq_seg_tpu_torch.utils import ckpoints
+
+    contract = {"model_1", "model_2", "epoch", "batch_idx", "optimizer_1", "optimizer_2"}
+    batches_for = batch_cache(SEED + 12)
+    out = {}
+
+    def cfg_of(name):
+        return load_config(os.path.join(ROOT, "config", f"{name}.json"))
+
+    def per_forward(c) -> int:
+        return sum(1 for k in c.model.params.vq_cfg.num_embeddings if k)
+
+    def tf32_hook(model, seen):
+        return model.register_forward_pre_hook(lambda *_: seen.append(
+            (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+
+    # -- the dual-model steps: angularv3, supconcps, the reptcps step of
+    # vqreptunetangular (the last for one step) ---------------------------------------------
+    def dual(name):
+        """The config, its driver's step and init phase, the step's extra
+        arguments and its loss terms."""
+        c = cfg_of(name)
+        if c.mode == "angularv3":
+            init = lambda st, l, t: vqpt_init_phase(st, l, t, extra=("labeled", 0.0))
+            return c, vqpt_step(c, c.mode), init, {"th": 0.5}, ANGULAR_TERMS
+        if c.mode == "supconcps":
+            init = lambda st, l, t: vqpt_init_phase(st, l, t, extra=("label",),
+                                                    init_protos=False)
+            return c, vqpt_step(c, c.mode), init, {}, SUPCON_TERMS
+        tc = c.train
+        step = make_rept_cps_train_step(
+            make_loss(tc.criterion.name, c.num_classes, ignore_index=255,
+                      weight=tc.criterion.get("weight")),
+            num_classes=c.num_classes, cps_loss_weight=tc.get("cps_loss_weight", 1.0),
+            commitment_loss_weight=tc.get("total_commitment_loss_weight", 1.0),
+            prototype_loss_weight=tc.get("total_prototype_loss_weight", 0.01))
+        init = lambda st, l, t: cps_init_phase(st, l, t, 100.0)
+        return c, step, init, {"drop_percent": REPT_DROP}, LOSS_TERMS
+
+    for name, warmup, timed, profiled in (
+            (ANGULAR_CONFIG, SLICE_WARMUP, SLICE_TIMED, SLICE_PROFILED),
+            (SUPCON_CONFIG, SLICE_WARMUP, SLICE_TIMED, SLICE_PROFILED),
+            (ANGULAR_REPT_CONFIG, 0, 1, 0)):
+        c, raw_step, init, extra, terms = dual(name)
+        mode, hw = c.mode, int(c.resize)
+        check(c.train.batch_size == TRAIN_BATCH, f"{name}: batch size {c.train.batch_size}")
+        per_step = 6 * per_forward(c)
+        n_steps = warmup + timed + profiled
+        batches = batches_for(hw, n_steps + 2)
+        step = lambda st, l, t, u: raw_step(st, l, t, u, **extra)
+        print(f"[{mode}] {name}: {c.model.name} ({c.model.params.encoder_name}, num_embeddings "
+              f"{list(c.model.params.vq_cfg.num_embeddings)}), {hw}x{hw}, batch "
+              f"{TRAIN_BATCH}+{TRAIN_BATCH}, f32, {extra or 'no extra argument'}; random weights "
+              f"from seed {SEED}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_cps_state(model_cfg_with_bn(c), make_lr_schedule(c.train, n_steps),
+                                 seed=SEED, encoder_weights=None)
+        l_img, target, _ = batches[0]
+        vq_cuda.launches = 0
+        with full_f32():  # as the drivers run it
+            init(state, to_input(l_img), target)
+        init_launches = vq_cuda.launches
+        check(init_launches == 2 * per_forward(c), f"{mode} init launched {init_launches}")
+        post_init = copy.deepcopy(state)
+        seen = []
+        hook = tf32_hook(state.model_1, seen)
+        run_step = step_runner(step, state, batches)
+        vq_cuda.launches = 0
+        times, launches_per_step, losses, peak = timed_steps(run_step, warmup, timed, vq_cuda)
+        launches = vq_cuda.launches
+        hook.remove()
+        check(seen == [(False, False)] * 3 * (warmup + timed),
+              f"TF32 flags seen by the {mode} forwards: {sorted(set(seen))}")
+        check(all(n == per_step for n in launches_per_step),
+              f"{mode} launches per step {launches_per_step}, expected {per_step}")
+        step_terms = {k: float(run_step.metrics[k]) for k in terms}
+        check(all(np.isfinite(losses)) and all(np.isfinite(list(step_terms.values()))),
+              f"non-finite {mode} losses {losses} {step_terms}")
+        p50 = statistics.median(times)
+        print(f"[{mode}] init {init_launches} vq_assign launches; {len(launches_per_step)} steps "
+              f"({warmup} warm-up), {launches} launches ({per_step} per step); TF32 off in all "
+              f"{len(seen)} forwards of model 1 under PyTorch's default flags")
+        print(f"[{mode}] f32 step, batch {TRAIN_BATCH}+{TRAIN_BATCH}, {hw}x{hw}: p50 {p50:.3f} "
+              f"ms/step ({2 * TRAIN_BATCH * 1e3 / p50:.1f} img/s) over {timed} steps (min "
+              f"{min(times):.3f}, max {max(times):.3f}); peak memory {peak / 2**30:.2f} GiB from "
+              f"the init on (torch.cuda.max_memory_allocated) | {card}")
+        print(f"[{mode}] last step: " + ", ".join(f"{k} {v:.6g}" for k, v in step_terms.items()))
+        prof = None
+        if profiled:
+            prof = profile_window(lambda i: run_step(warmup + timed + i), profiled, "step",
+                                  f"{mode}-profile", f"f32 {mode} step", card)
+        del state
+        l_img, target, ul_img = batches[-1]
+        run = lambda st: raw_step(st, to_input(l_img), target, to_input(ul_img), **extra)[1]
+        loss_err, grad_err, worst, substituted = kernel_vs_plain_step(
+            run, post_init, vq_cuda, vq_assign_reference, vector_quantizer, terms)
+        print(f"[{mode}-e2e] f32 step from the post-init state, VQ on the kernel vs on the plain "
+              f"version: loss terms max relative difference {loss_err:.3e} (limit "
+              f"{SLICE_LOSS_TOL}), gradients max relative L2 {grad_err:.3e} at {worst} (limit "
+              f"{SLICE_GRAD_TOL}); near-tie rows given the kernel's code per VQ call: "
+              f"{substituted}")
+        check(len(substituted) == per_step, f"plain {mode} step made {len(substituted)} VQ calls")
+        check(loss_err <= SLICE_LOSS_TOL, f"f32 {mode} loss terms differ by {loss_err}")
+        check(grad_err <= SLICE_GRAD_TOL, f"f32 {mode} gradient of {worst} differs by {grad_err}")
+        del post_init
+        torch.cuda.empty_cache()
+        out[name] = {"init_launches": init_launches, "launches": launches,
+                     "per_step": launches_per_step, "p50": p50, "peak_gib": peak / 2**30,
+                     "vq_ms": prof["vq_ms"] if prof else None,
+                     "device_ms": prof["device_ms"] if prof else None,
+                     "loss_err": loss_err, "grad_err": grad_err}
+
+    # -- semiweed and selfsup: one model -------------------------------------------------------
+    for name, terms in ((SEMIWEED_CONFIG, SEMIWEED_TERMS), (SELFSUP_CONFIG, SELFSUP_TERMS)):
+        c = cfg_of(name)
+        hw = int(c.resize)
+        n_steps = SLICE_WARMUP + SLICE_TIMED + SLICE_PROFILED
+        batches = batches_for(hw, n_steps + 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_state(c.model, make_lr_schedule(c.train, n_steps), seed=SEED)
+        vq_cuda.launches = 0
+        if c.mode == "semiweed":
+            tc = c.train
+            raw = make_semiweed_train_step(
+                make_loss(tc.criterion.name, c.num_classes, ignore_index=255),
+                num_classes=c.num_classes, overlap_size=tc.get("overlap_size", 240),
+                ce_loss_weight=tc.get("ce_loss_weight", 1.0),
+                dc_loss_weight=tc.get("dc_loss_weight", 1.0))
+            draw = semiweed_draws(c, "cuda")
+            step = lambda st, l, t, u: raw(st, l, t, u, *draw())
+            per_step, forwards = 0, 3
+        else:
+            raw = make_selfsup_train_step()
+
+            def step(st, l, t, u):
+                st, metrics, _ = raw(st, l)
+                return st, metrics
+
+            with full_f32():
+                init_phase(state, (to_input(batches[0][0]),))
+            per_step, forwards = per_forward(c), 1
+        init_launches = vq_cuda.launches
+        seen = []
+        hook = tf32_hook(state.model, seen)
+        run_step = step_runner(step, state, batches)
+        vq_cuda.launches = 0
+        times, launches_per_step, losses, peak = timed_steps(run_step, SLICE_WARMUP, SLICE_TIMED,
+                                                             vq_cuda)
+        hook.remove()
+        check(seen == [(False, False)] * forwards * (SLICE_WARMUP + SLICE_TIMED),
+              f"TF32 flags seen by the {c.mode} forwards: {sorted(set(seen))}")
+        check(all(n == per_step for n in launches_per_step),
+              f"{c.mode} launches per step {launches_per_step}, expected {per_step}")
+        step_terms = {k: float(run_step.metrics[k]) for k in terms}
+        check(all(np.isfinite(losses)) and all(np.isfinite(list(step_terms.values()))),
+              f"non-finite {c.mode} losses {losses} {step_terms}")
+        p50 = statistics.median(times)
+        print(f"[{c.mode}] {name}: {c.model.name} ({c.model.params.encoder_name}), {hw}x{hw}, "
+              f"batch {TRAIN_BATCH}, f32: init {init_launches} + {sum(launches_per_step)} "
+              f"vq_assign launches ({per_step} per step); p50 {p50:.3f} ms/step over "
+              f"{SLICE_TIMED} steps (min {min(times):.3f}, max {max(times):.3f}); peak memory "
+              f"{peak / 2**30:.2f} GiB; TF32 off in all {len(seen)} forwards | {card}")
+        print(f"[{c.mode}] last step: " + ", ".join(f"{k} {v:.6g}" for k, v in step_terms.items()))
+        prof = profile_window(lambda i: run_step(SLICE_WARMUP + SLICE_TIMED + i), SLICE_PROFILED,
+                              "step", f"{c.mode}-profile", f"f32 {c.mode} step", card)
+        del state
+        torch.cuda.empty_cache()
+        out[name] = {"init_launches": init_launches, "launches": sum(launches_per_step),
+                     "per_step": launches_per_step, "p50": p50, "peak_gib": peak / 2**30,
+                     "vq_ms": prof["vq_ms"] if prof else None,
+                     "device_ms": prof["device_ms"] if prof else None}
+
+    # -- the drivers on phase 7's tree ---------------------------------------------------------
+    test_imgs = DRIVER_TEST
+    steps = DRIVER_UNLABELLED // TRAIN_BATCH
+
+    def drive(train_fn, c, tag, **train):
+        c = copy.deepcopy(c)
+        c.train.update({"data_dir": root, "save_dir": os.path.join(root, f"runs_{tag}"),
+                        "num_epochs": 1, "test_every": 1, **train})
+        c.test.update(data_dir=root, save_dir=os.path.join(root, f"test_{tag}"))
+        history = []
+        vq_cuda.launches = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            state = train_fn(c, history=history)
+        seconds = time.perf_counter() - t0
+        check([h["epoch"] for h in history] == [0], f"{tag} epochs {history}")
+        print(f"[{tag}-driver] {train_fn.__name__}: 1 epoch, f32, {vq_cuda.launches} vq_assign "
+              f"launches; {seconds:.1f} s; " + ", ".join(
+                  f"{k} {v:.4g}" for k, v in history[0].items()
+                  if isinstance(v, float) and k != "seconds") + f" | {card}")
+        return c, state, history, vq_cuda.launches
+
+    for name, fn, tag in ((ANGULAR_CONFIG, train_angularv3_cps, "angularv3"),
+                          (SUPCON_CONFIG, train_supcon_cps, "supconcps"),
+                          (ANGULAR_REPT_CONFIG, train_rept_cps, "reptcps_angular")):
+        c = cfg_of(name)
+        c_run, state, history, launches = drive(fn, c, tag)
+        expect = per_forward(c) * (2 + 6 * steps + test_imgs)
+        check(launches == expect, f"{fn.__name__} launched the kernel {launches}, not {expect}")
+        check(np.isfinite(history[0]["loss"]) and 0.0 <= history[0]["test_miou"] <= 1.0,
+              f"{tag} epoch {history}")
+        ck_dir = os.path.join(c_run.train.save_dir, f"{c.project_name}_{c.mode}_0", "ckpoints")
+        names = sorted(os.listdir(ck_dir))
+        check(names == ["0ep.ckpt", "last.ckpt"], f"{tag} checkpoints {names}")
+        check(set(ckpoints.load_full(os.path.join(ck_dir, "last.ckpt"))) == contract,
+              f"{tag} last.ckpt keys")
+        out[f"{tag}_driver"] = launches
+        if tag == "angularv3":
+            sweep_dir, sweep_cfg = ck_dir, c_run
+        del state
+        torch.cuda.empty_cache()
+
+    c = cfg_of(SEMIWEED_CONFIG)
+    c_run, state, history, launches = drive(train_semiweed, c, "semiweed")
+    check(launches == 0, f"train_semiweed launched the kernel {launches} times")
+    ck = os.path.join(c_run.train.save_dir, f"{c.project_name}_semiweed_0", "ckpoints",
+                      "last.ckpt")
+    check(set(ckpoints.load_full(ck)) == {"model_1", "epoch", "optimizer_1"},
+          "semiweed last.ckpt keys")
+    check(np.isfinite(history[0]["loss"]) and 0.0 <= history[0]["test_miou"] <= 1.0,
+          f"semiweed epoch {history}")
+    out["semiweed_driver"] = launches
+    del state
+
+    c = cfg_of(SELFSUP_CONFIG)
+    images = os.path.join(root, "train", "input")
+    n_images = len(os.listdir(images))
+    c_run, state, history, launches = drive(train_selfsup, c, "selfsup", data_dir=images)
+    selfsup_steps = -(-n_images // c.train.batch_size)
+    expect = per_forward(c) * (1 + selfsup_steps)  # the init phase, then one per step
+    check(launches == expect, f"train_selfsup launched the kernel {launches}, not {expect}")
+    vqvae_dir = os.path.join(c_run.train.save_dir, "selfsup_ckpoints")
+    files = sorted(os.listdir(vqvae_dir))
+    check(files == ["0ep_codebook.ckpt", "0ep_decoder.ckpt", "0ep_encoder.ckpt"],
+          f"selfsup files {files}")
+    out["selfsup_driver"] = launches
+    del state
+    torch.cuda.empty_cache()
+
+    # the users' flow: a vqpt epoch pretrained from the files selfsup wrote
+    pretrained = {p: os.path.join(vqvae_dir, f"0ep_{p}.ckpt") for p in ("encoder", "codebook")}
+    c = cfg_of(VQPT_CONFIG)
+    _, state, history, launches = drive(train_vqpt_cps, c, "vqpt_from_selfsup",
+                                        pretrained=pretrained)
+    expect = per_forward(c) * (2 + 6 * steps + test_imgs)
+    check(launches == expect, f"pretrained vqpt launched the kernel {launches}, not {expect}")
+    enc_file = ckpoints.load_full(pretrained["encoder"])
+    cb_file = ckpoints.load_full(pretrained["codebook"])
+    for label, m in (("model 1", state.model_1), ("model 2", state.model_2)):
+        sd = {k: v.cpu() for k, v in m.core.encoder.state_dict().items()}
+        params = [k for k, _ in m.core.encoder.named_parameters()]
+        changed = [k for k in params if not torch.equal(sd[k], enc_file[k])]
+        check(not changed, f"pretrained {label}: encoder parameters changed {changed[:3]}")
+        cbs = {k: v.cpu() for k, v in m.core.codebooks.state_dict().items()}
+        check(sorted(cbs) == sorted(cb_file) and all(torch.equal(cbs[k], cb_file[k])
+                                                     for k in cbs),
+              f"pretrained {label}: codebooks are not the selfsup run's")
+    print(f"[vqpt_from_selfsup-driver] the selfsup run's encoder ({len(params)} parameters) "
+          f"bitwise as loaded after the epoch in both models, its {len(cb_file)} codebooks "
+          f"kept | {card}")
+    out["vqpt_from_selfsup_driver"] = launches
+    del state, enc_file
+    torch.cuda.empty_cache()
+
+    # the test CLI and serving from the angularv3 run's last.ckpt
+    c = copy.deepcopy(sweep_cfg)
+    c.test.update(data_dir=root, weights=os.path.join(sweep_dir, "last.ckpt"),
+                  save_dir=os.path.join(root, "test_sweep12"))
+    vq_cuda.launches = 0
+    best_path, best = test_cli.test(c)
+    out["angularv3_sweep"] = vq_cuda.launches
+    per_fwd = per_forward(c)
+    check(out["angularv3_sweep"] == per_fwd * test_imgs,
+          f"sweep launched the kernel {out['angularv3_sweep']} times")
+    check(0.0 <= best["test_miou"] <= 1.0, f"sweep best {best_path} {best}")
+    pred = Predictor.from_checkpoint(c, os.path.join(sweep_dir, "last.ckpt"),
+                                     batch_size=c.train.batch_size)
+    imgs = np.random.default_rng(SEED + 12).integers(
+        0, 256, (c.train.batch_size, c.resize, c.resize, 3), dtype=np.uint8)
+    vq_cuda.launches = 0
+    labels = pred(imgs)
+    out["angularv3_serve"] = vq_cuda.launches
+    check(out["angularv3_serve"] == per_fwd, f"served batch launched {out['angularv3_serve']}")
+    check(labels.shape == imgs.shape[:3] and int(labels.max()) < int(c.num_classes),
+          f"served labels {labels.shape}")
+    print(f"[angularv3-driver] test CLI on last.ckpt x {test_imgs} images: "
+          f"{os.path.basename(best_path)} test miou {best['test_miou']:.4f}, "
+          f"{out['angularv3_sweep']} launches; Predictor.from_checkpoint(last.ckpt): "
+          f"{out['angularv3_serve']} launches | {card}")
     del pred
     torch.cuda.empty_cache()
     return out
@@ -1917,12 +2275,16 @@ def main() -> int:
             t_vqpt = time.perf_counter()
             vqpt = vqpt_phase(card, vq_cuda, vq_assign_reference, vector_quantizer, root)
             print(f"[vqpt] phase 11 in {time.perf_counter() - t_vqpt:.1f} s | {card}")
+            # -- 12. angularv3, supconcps, semiweed and selfsup
+            t_slice = time.perf_counter()
+            slice12 = slice_phase(card, vq_cuda, vq_assign_reference, vector_quantizer, root)
+            print(f"[slice] phase 12 in {time.perf_counter() - t_slice:.1f} s | {card}")
         finally:
             torch.backends.cudnn.allow_tf32 = False
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # -- 12. result lines -----------------------------------------------------------
+    # -- 13. result lines -----------------------------------------------------------
     main_path = results[:len(captured)]  # the three shapes the serving forward gave
     shape_keys = ("case", "n", "c", "k", "ms", "plain_ms", "bound_ms", "f32_simt_bound_ms",
                   "near_ties", "max_abs_err")
@@ -2015,6 +2377,23 @@ def main() -> int:
         "launches_vqpt_serve": vqpt["vqpt_serve"],
         "vqpt_vq_device_ms_per_step": vqpt["vqpt"]["vq_ms"],
         "vqpt_step_device_ms_per_step": vqpt["vqpt"]["device_ms"],
+        # phase 12 (f32): init and the warm-up and timed steps of
+        # vqreptunetangularv3.json (angularv3), sup_con_loss.json
+        # (supconcps), one reptcps step of vqreptunetangular.json,
+        # semiweednet.json (no VQ) and vqvaev2_selfsup.json; the drivers
+        # (one epoch each), the vqpt epoch pretrained from the selfsup run's
+        # files, the sweep and serving; the profiled steps' device time
+        "launches_slice": {n: {"init": slice12[n]["init_launches"],
+                               "steps": slice12[n]["launches"],
+                               "per_step": slice12[n]["per_step"]}
+                           for n in (ANGULAR_CONFIG, SUPCON_CONFIG, ANGULAR_REPT_CONFIG,
+                                     SEMIWEED_CONFIG, SELFSUP_CONFIG)},
+        "launches_slice_drivers": {k: v for k, v in slice12.items() if k.endswith(
+            ("_driver", "_sweep", "_serve"))},
+        "slice_vq_device_ms_per_step": {n: slice12[n]["vq_ms"] for n in (
+            ANGULAR_CONFIG, SUPCON_CONFIG, SEMIWEED_CONFIG, SELFSUP_CONFIG)},
+        "slice_step_device_ms_per_step": {n: slice12[n]["device_ms"] for n in (
+            ANGULAR_CONFIG, SUPCON_CONFIG, SEMIWEED_CONFIG, SELFSUP_CONFIG)},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

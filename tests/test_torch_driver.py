@@ -28,6 +28,7 @@ in a subprocess, and what is not ported raising.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -153,10 +154,21 @@ def runs(synthetic_dataset, tmp_path_factory):
                           max_steps_per_epoch=2, device="cpu", history=history)
     finally:
         mp.undo()
-    return dict(base=base, jax_vars=(_np(v1), _np(v2)), jax_batch=captured["batch"],
-                port_batches=port_batches, state=state, history=history,
-                jax_run=str(base / "jax" / "drv_hybrid_0"),
-                port_run=str(base / "port" / "drv_hybrid_0"))
+    yield dict(base=base, jax_vars=(_np(v1), _np(v2)), jax_batch=captured["batch"],
+               port_batches=port_batches, state=state, history=history,
+               jax_run=str(base / "jax" / "drv_hybrid_0"),
+               port_run=str(base / "port" / "drv_hybrid_0"))
+    shutil.rmtree(base, ignore_errors=True)  # two runs of full checkpoints
+
+
+@pytest.fixture(autouse=True)
+def _delete_what_the_test_wrote(request):
+    """Each test's ``tmp_path`` (runs of full checkpoints, 335 MB each at
+    resnet18) is removed when the test is done."""
+    path = request.getfixturevalue("tmp_path") if "tmp_path" in request.fixturenames else None
+    yield
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def test_init_phase_sees_the_same_first_batch(runs):
@@ -345,8 +357,8 @@ def test_unported_modes_and_options_raise(synthetic_dataset, tmp_path):
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(cfg))
     with pytest.raises(NotImplementedError, match="item 11"):
-        train_cli.main(["--config_path", str(path), "--mode", "angularv3", "--device", "cpu"])
-    path.write_text(json.dumps({**cfg, "mode": "selfsup"}))
+        train_cli.main(["--config_path", str(path), "--mode", "unimatch", "--device", "cpu"])
+    path.write_text(json.dumps({**cfg, "mode": "salientcps"}))
     with pytest.raises(NotImplementedError, match="item 11"):
         train_cli.main(["--config_path", str(path), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 13"):

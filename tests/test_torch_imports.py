@@ -40,7 +40,9 @@ def test_imports_with_jax_blocked():
                      "training.cps", "training.variant_drivers", "models.modules.attention",
                      "models.modules.heads", "models.encoders.convnext",
                      "models.networks.vqseghead", "data.augmentations", "losses.focal",
-                     "train", "test"):
+                     "models.networks.deeplabv3", "models.networks.semiweednet",
+                     "models.networks.vqvae", "losses.contrastive", "losses.dc",
+                     "training.selfsup", "train", "test"):
             assert "vq_seg_tpu_torch." + name in sys.modules, name
         from vq_seg_tpu_torch.data import fastimg
         assert fastimg._lib is None and not fastimg._tried, "importing must not build the decoder"

@@ -158,7 +158,7 @@ def test_codebook_init_phase_is_seeded_and_uses_the_features(flagship):
 
 def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model({"name": "vqreptunetangular", "params": {}}, device="cpu")
+        make_model({"name": "fcn32s", "params": {}}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VectorQuantizer(8, 4, ema=True)
     with pytest.raises(ValueError):

@@ -1,4 +1,4 @@
 """Datasets and the batch loader."""
-from .dataset import BaseDataset, Loader, NormalizedDataset
+from .dataset import BaseDataset, FolderDataset, Loader, NormalizedDataset
 
-__all__ = ["BaseDataset", "Loader", "NormalizedDataset"]
+__all__ = ["BaseDataset", "FolderDataset", "Loader", "NormalizedDataset"]

@@ -1,5 +1,6 @@
 """Datasets and the batch loader, counterpart of the JAX package's
-``data/dataset.py`` (``BaseDataset``, ``NormalizedDataset``, ``Loader``).
+``data/dataset.py`` (``BaseDataset``, ``NormalizedDataset``,
+``FolderDataset``, ``Loader``).
 
 Items are host numpy, as in the JAX package: ``img`` HWC float32 in [0, 1]
 (torchvision ``to_tensor`` values) and ``target`` the raw uint8 mask
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import os
 import queue
+from glob import glob
 import threading
 from typing import Optional
 
@@ -133,6 +135,23 @@ class NormalizedDataset(BaseDataset):
         img = (out["img"] - self.mean) / self.std
         out["img"] = (np.clip(np.round(img * 255.0), 0, 255) / 255.0).astype(np.float32)
         return out
+
+
+class FolderDataset:
+    """The ``*.png`` images of one folder, sorted, without targets (the
+    ``selfsup`` trainer's VQ-VAE pretraining): items ``{filename, img}``,
+    bilinearly resized; no padding to a batch multiple."""
+
+    def __init__(self, data_dir: str, resize):
+        self.images = sorted(glob(os.path.join(data_dir, "*.png")))
+        self.resize = _norm_resize(resize)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, index):
+        img, _ = _load_pair(self.images[index], None, self.resize, False)
+        return {"filename": os.path.basename(self.images[index]), "img": img}
 
 
 class Loader:

@@ -1,13 +1,17 @@
 """Loss registry, counterpart of the JAX package's ``losses/__init__.py``:
-NCHW logits and (N, H, W) integer targets."""
+NCHW logits and (N, H, W) integer targets; also the supervised-contrastive
+and diagonal-cosine losses of the ``supconcps`` and ``semiweed`` trainers."""
 from __future__ import annotations
 
+from .contrastive import SupConLoss, supcon_loss
 from .cross_entropy import cross_entropy_loss, nll_loss
+from .dc import DCLoss, dc_loss
 from .dice import DiceLoss, dice_coefficient, dice_loss
 from .focal import FocalLoss, focal_loss
 
 __all__ = ["make_loss", "cross_entropy_loss", "nll_loss", "dice_loss", "dice_coefficient",
-           "DiceLoss", "focal_loss", "FocalLoss"]
+           "DiceLoss", "focal_loss", "FocalLoss", "supcon_loss", "SupConLoss", "dc_loss",
+           "DCLoss"]
 
 
 class _CE:

@@ -18,13 +18,17 @@ _CCAVQ_DEFAULT = {"num_embeddings": [0, 0, 512, 512, 512], "distance": "euclidea
 
 def make_encoder(name: str, in_channels: int = 3, depth: int = 5,
                  padding_mode: str = "zeros", generator: Optional[torch.Generator] = None,
-                 cca=None, vq_cfg=None, custom_stem=None):
-    """Build an encoder by name, at output stride 32.  Returns (module,
-    encoder_channels).  ``cca`` gives the per-stage flags of a ``cca`` or
-    ``ccavq`` name (default: the last three stages); ``vq_cfg`` the
+                 cca=None, vq_cfg=None, custom_stem=None, output_stride: int = 32):
+    """Build an encoder by name.  Returns (module, encoder_channels).
+    ``output_stride`` 16 or 8 dilates the deepest stages of a plain or
+    ``cca`` resnet (the DeepLab networks); the other encoders take 32
+    only.  ``cca`` gives the per-stage flags of a ``cca`` or ``ccavq``
+    name (default: the last three stages); ``vq_cfg`` the
     in-encoder codebooks of a ``ccavq`` name; ``custom_stem`` replaces a
     resnet's conv1/bn1/ReLU.  A ConvNeXt has at most 4 stages: ``depth`` is
     clamped to 4."""
+    if output_stride != 32 and ("ccavq" in name or "resnet" not in name):
+        raise ValueError(f"encoder {name!r} has output stride 32 only, got {output_stride}")
     if "resnet" in name:
         default_cca = (False, False, True, True, True)
         if "ccavq" in name:
@@ -45,7 +49,8 @@ def make_encoder(name: str, in_channels: int = 3, depth: int = 5,
             p = resnet_encoders[name]
             enc = ResNetEncoder(p["out_channels"], p["block"], p["layers"], depth=depth,
                                 in_channels=in_channels, padding_mode=padding_mode,
-                                generator=generator, cca=cca, custom_stem=custom_stem)
+                                generator=generator, cca=cca, custom_stem=custom_stem,
+                                output_stride=output_stride)
             return enc, enc.encoder_channels()
     if name in convnext_encoders:
         p = convnext_encoders[name]

@@ -4,8 +4,12 @@
 Module names follow torchvision (``conv1``, ``bn1``, ``layer1..4``, blocks
 ``0..N``, ``downsample.0/1``), so a torchvision-layout state_dict loads as
 it is.  The forward returns depth+1 feature maps
-``[x, stem, maxpool+layer1, layer2, layer3, layer4][: depth + 1]`` at output
-stride 32.
+``[x, stem, maxpool+layer1, layer2, layer3, layer4][: depth + 1]``.
+``output_stride`` 16 replaces layer4's stride 2 with dilation 2, and 8
+also layer3's with dilation 2 and layer4's with 4, in every 3x3 conv of
+the stage, the padding equal to the dilation; the stage's first block
+keeps its 1x1 downsample shortcut, at stride 1
+(``stage_strides_dilations``).  The weights' keys do not change.
 
 ``cca`` (a flag per stage, ``depth`` of them) puts a ``CCA`` after the stem
 (before the max-pool) and after each flagged layer, as ``cca_{i}``
@@ -39,17 +43,29 @@ def _downsample(inplanes, out_ch, stride, generator):
                          batch_norm(out_ch))
 
 
+def stage_strides_dilations(output_stride: int):
+    """(stride, dilation) of layer1..4 at ``output_stride`` 32, 16 or 8."""
+    if output_stride == 32:
+        return ((1, 1), (2, 1), (2, 1), (2, 1))
+    if output_stride == 16:
+        return ((1, 1), (2, 1), (2, 1), (1, 2))
+    if output_stride == 8:
+        return ((1, 1), (2, 1), (1, 2), (1, 4))
+    raise ValueError(f"Output stride should be 32, 16 or 8, got {output_stride}.")
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 padding_mode: str = "zeros", generator: Optional[torch.Generator] = None):
+                 padding_mode: str = "zeros", generator: Optional[torch.Generator] = None,
+                 dilation: int = 1):
         super().__init__()
-        self.conv1 = ConvPad(inplanes, planes, 3, stride, 1, bias=False,
-                             padding_mode=padding_mode, generator=generator)
+        self.conv1 = ConvPad(inplanes, planes, 3, stride, dilation, bias=False,
+                             padding_mode=padding_mode, generator=generator, dilation=dilation)
         self.bn1 = batch_norm(planes)
-        self.conv2 = ConvPad(planes, planes, 3, 1, 1, bias=False,
-                             padding_mode=padding_mode, generator=generator)
+        self.conv2 = ConvPad(planes, planes, 3, 1, dilation, bias=False,
+                             padding_mode=padding_mode, generator=generator, dilation=dilation)
         self.bn2 = batch_norm(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
@@ -66,13 +82,14 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 padding_mode: str = "zeros", generator: Optional[torch.Generator] = None):
+                 padding_mode: str = "zeros", generator: Optional[torch.Generator] = None,
+                 dilation: int = 1):
         super().__init__()
         out_ch = planes * self.expansion
         self.conv1 = ConvPad(inplanes, planes, 1, 1, 0, bias=False, generator=generator)
         self.bn1 = batch_norm(planes)
-        self.conv2 = ConvPad(planes, planes, 3, stride, 1, bias=False,
-                             padding_mode=padding_mode, generator=generator)
+        self.conv2 = ConvPad(planes, planes, 3, stride, dilation, bias=False,
+                             padding_mode=padding_mode, generator=generator, dilation=dilation)
         self.bn2 = batch_norm(planes)
         self.conv3 = ConvPad(planes, out_ch, 1, 1, 0, bias=False, generator=generator)
         self.bn3 = batch_norm(out_ch)
@@ -94,8 +111,10 @@ class ResNetEncoder(nn.Module):
     def __init__(self, out_channels, block: str, layers, depth: int = 5,
                  in_channels: int = 3, padding_mode: str = "zeros",
                  generator: Optional[torch.Generator] = None,
-                 cca: Optional[Sequence[bool]] = None, custom_stem: Optional[nn.Module] = None):
+                 cca: Optional[Sequence[bool]] = None, custom_stem: Optional[nn.Module] = None,
+                 output_stride: int = 32):
         super().__init__()
+        strides_dilations = stage_strides_dilations(output_stride)
         self.out_channels = tuple(out_channels)
         self.depth = depth
         cls = BasicBlock if block == "basic" else Bottleneck
@@ -111,9 +130,10 @@ class ResNetEncoder(nn.Module):
         stages = list(zip((64, 128, 256, 512), layers))[: max(depth - 1, 0)]
         for li, (planes, n_blocks) in enumerate(stages):
             blocks = []
+            stride, dilation = strides_dilations[li]
             for bi in range(n_blocks):
-                stride = 2 if (li > 0 and bi == 0) else 1
-                blocks.append(cls(inplanes, planes, stride, padding_mode, generator))
+                blocks.append(cls(inplanes, planes, stride if bi == 0 else 1, padding_mode,
+                                  generator, dilation))
                 inplanes = planes * cls.expansion
             self.add_module(f"layer{li + 1}", nn.Sequential(*blocks))
         self.cca = None

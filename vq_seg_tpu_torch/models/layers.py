@@ -61,16 +61,17 @@ class ConvPad(nn.Conv2d):
 
     ``padding_mode`` reflect/replicate/circular pads only when padding > 0,
     as the JAX ``ConvPad`` does; 1x1 and downsample convs have none.  The
-    weight is drawn by ``init`` from ``generator``; a bias starts at 0."""
+    weight is drawn by ``init`` from ``generator``; a bias starts at 0.
+    ``dilation`` spaces the kernel taps (atrous convolution)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, groups: int = 1, bias: bool = True,
                  padding_mode: str = "zeros", init=kaiming_normal,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dilation: int = 1):
         if padding_mode not in PADDING_MODES:
             raise ValueError(f"padding_mode must be one of {PADDING_MODES}, got {padding_mode!r}")
         super().__init__(in_channels, out_channels, kernel_size, stride, padding,
-                         groups=groups, bias=bias,
+                         dilation=dilation, groups=groups, bias=bias,
                          padding_mode=padding_mode if padding > 0 else "zeros")
         init(self.weight, generator)
         if self.bias is not None:
@@ -112,17 +113,19 @@ def batch_norm(channels: int, eps: float = 1e-5, momentum: float = 0.1) -> Batch
 
 class ConvBNReLU(nn.Module):
     """conv (no bias) -> BN -> activation.  ``padding`` defaults to
-    (k - 1) // 2, the 'same' idiom; ``groups`` and ``padding_mode`` are the
-    conv's; ``act`` is applied last (None for none)."""
+    (k - 1) // 2, the 'same' idiom; ``groups``, ``dilation`` and
+    ``padding_mode`` are the conv's; ``act`` is applied last (None for
+    none)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  bn_eps: float = 1e-5, bn_momentum: float = 0.1,
                  generator: Optional[torch.Generator] = None, *, padding: Optional[int] = None,
-                 groups: int = 1, padding_mode: str = "zeros", act=F.relu):
+                 groups: int = 1, dilation: int = 1, padding_mode: str = "zeros", act=F.relu):
         super().__init__()
         pad = (kernel_size - 1) // 2 if padding is None else padding
         self.conv = ConvPad(in_channels, out_channels, kernel_size, 1, pad, groups=groups,
-                            bias=False, padding_mode=padding_mode, generator=generator)
+                            bias=False, padding_mode=padding_mode, generator=generator,
+                            dilation=dilation)
         self.bn = batch_norm(out_channels, bn_eps, bn_momentum)
         self.act = act
 

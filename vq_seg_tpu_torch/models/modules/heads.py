@@ -1,10 +1,12 @@
 """Segmentation heads, counterpart of the JAX package's
-``models/modules/heads.py``: ``VQSegmentationHead``, a codebook of
+``models/modules/heads.py``: ``SegmentationHead`` (the DeepLab networks'
+conv, upsample and activation), ``VQSegmentationHead``, a codebook of
 ``num_embeddings`` (= classes) codes as the classifier, and the angular
-heads of ``vqashunet`` and ``vqashunetv2`` (``AngularSegmentationHead``,
-``AngularSegmentationHeadv2``), cosine classifiers over a trainable table
-of class embeddings.  ``SegmentationHead`` and ``AngularSegmentationHeadv3``
-are in ROADMAP.md, queue 1, "The rest of the model zoo".
+heads (``AngularSegmentationHead`` of ``vqashunet``,
+``AngularSegmentationHeadv2`` of ``vqashunetv2`` and
+``vqreptunetangular``, ``AngularSegmentationHeadv3`` of
+``vqreptunetangularv3``), cosine classifiers over a trainable table of
+class embeddings.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch.nn as nn
 
 from ...ops.kmeans import kmeans, l2norm
 from ...ops.vq import code_usage_percent, commitment_loss, quantize_ste, vq_assign
+from ...utils.seg_tools import score_mask
 from ..layers import ConvPad, resize_nearest_exact, torch_conv_default, upsample_bilinear_ac
 from .prototype import (_class_major_onehot, _ProtoBase, arcface_phi, entropy_mask,
                         orthogonal_loss_fn)
@@ -24,6 +27,26 @@ from .vector_quantizer import _rows
 def l1norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """t / max(sum |t|, eps) along ``dim``."""
     return t / torch.sum(torch.abs(t), dim=dim, keepdim=True).clamp_min(eps)
+
+
+class SegmentationHead(nn.Module):
+    """conv (k x k, bias, torch's default init) -> x``upsampling``
+    align-corners bilinear upsample -> ``activation`` (None for none)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 upsampling: int = 1, activation=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.upsampling = upsampling
+        self.activation = activation
+        self.conv = ConvPad(in_channels, out_channels, kernel_size, 1, kernel_size // 2,
+                            bias=True, init=torch_conv_default, generator=generator)
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.upsampling > 1:
+            x = upsample_bilinear_ac(x, scale=self.upsampling)
+        return x if self.activation is None else self.activation(x)
 
 
 class _AngularHead(_ProtoBase):
@@ -142,6 +165,66 @@ class AngularSegmentationHeadv2(_AngularHead):
                 if self.orthogonal_reg_weight > 0:
                     loss = loss + orthogonal_loss_fn(self.embedding) * self.orthogonal_reg_weight
         return pred, loss
+
+
+class AngularSegmentationHeadv3(_AngularHead):
+    """v3: in-head pseudo-label self-training.  conv (1x1 by default) ->
+    x``upsampling`` -> cosines of the l2-normalised rows to the
+    l2-normalised embeddings; the returned scores are the softmax of the
+    plain cosines.  In training with ``pred`` the margin CE: on the
+    ``"labeled"`` split ``pred`` is (N, H, W) integer labels, on
+    ``"unlabeled"`` it is the other model's (N, K, H, W) score map, whose
+    argmax is the pseudo-label and, where ``th`` > 0, whose confidence mask
+    (``score_mask(pred, th)``) multiplies the logits (the JAX package's
+    intended mask).  Labels and mask reach the conv's grid by the
+    half-pixel nearest rule.  The loss also holds the MSE between the conv
+    output and its label's (detached) normalised embedding, and the
+    orthogonality term with ``orthogonal_reg_weight``.  The k-means init
+    runs on the l2-normalised rows.  ``forward(x, pred=None,
+    split="labeled", th=0.0, train=False, init_protos=False,
+    generator=None)`` -> (scores (N, K, H, W), loss)."""
+
+    def __init__(self, in_channels: int, num_classes: int = 3, out_channels: int = 3,
+                 scale: float = 1.0, margin: float = 0.5, kernel_size: int = 1,
+                 upsampling: int = 1, easy_margin: bool = True,
+                 orthogonal_reg_weight: float = 0.0, pt_init: str = "kmeans",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_channels, num_classes, 0, out_channels, scale, margin, kernel_size,
+                         upsampling, easy_margin, pt_init, generator)
+        self.orthogonal_reg_weight = orthogonal_reg_weight
+
+    def forward(self, x, pred=None, split: str = "labeled", th=0.0, train: bool = False,
+                init_protos: bool = False, generator: Optional[torch.Generator] = None):
+        y = self.conv(x)
+        if self.upsampling > 1:
+            y = upsample_bilinear_ac(y, scale=self.upsampling)
+        n, c, h, w = y.shape
+        with torch.autocast(y.device.type, enabled=False):
+            y = y.float()
+            flat = _rows(y)
+            if init_protos:
+                self._init_table(l2norm(flat), None, generator)
+            wn = l2norm(self.embedding)
+            cosine = wn @ l2norm(flat).T  # class-major (K, M)
+            result = _class_scores(cosine, n, h, w)
+            loss = flat.new_zeros(())
+            if train and pred is not None:
+                unlabeled = split == "unlabeled"
+                gt = torch.argmax(pred, dim=1) if unlabeled else pred
+                if tuple(gt.shape[1:]) != (h, w):
+                    gt = resize_nearest_exact(gt, (h, w))
+                gt = gt.long()
+                mask = None
+                if unlabeled and float(th) > 0:
+                    mask = resize_nearest_exact(score_mask(pred, float(th))[:, 0], (h, w))
+                    mask = mask.reshape(-1).float()
+                loss, _ = self._margin_ce(cosine, gt.reshape(-1), mask)
+                class_feat = wn.detach().index_select(0, gt.reshape(-1))
+                class_feat = class_feat.reshape(n, h, w, c).permute(0, 3, 1, 2)
+                loss = loss + torch.mean((class_feat - y) ** 2)
+                if self.orthogonal_reg_weight > 0:
+                    loss = loss + orthogonal_loss_fn(self.embedding) * self.orthogonal_reg_weight
+        return result, loss
 
 
 class VQSegmentationHead(nn.Module):

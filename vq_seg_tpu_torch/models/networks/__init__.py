@@ -6,8 +6,12 @@ and ``vqunet_v2``, the ``vqpt`` networks (``vqptunet``, ``vqeuptunet``,
 ``vqnedptunet``, ``vqashunet``, ``vqashunetv2``) and the attention networks
 of ``plaincps``/``objcps`` (``vqatunet``, ``vqcanet``, ``vqcanetv2``,
 ``vqcanetv3``, ``vqcanetv4``, ``drsavqunet``, ``vqpatchunet``,
-``vqimdbnet``, ``vqsegheadnet``); the other entries of the JAX registry are in ROADMAP.md, queue 1, "The rest of
-the model zoo"."""
+``vqimdbnet``, ``vqsegheadnet``), the angular networks of ``angularv3``
+and ``reptcps`` (``vqreptunetangularv3``, ``vqreptunetangular``),
+``supconvqunet``, the DeepLab networks (``deeplabv3``, ``deeplabv3plus``,
+``semiweednet``) and the VQ-VAEs of ``selfsup`` (``vqvaev2``,
+``vqvaev1``); the other entries of the JAX registry are in ROADMAP.md,
+queue 1, "The rest of the model zoo"."""
 from __future__ import annotations
 
 from typing import Optional
@@ -33,7 +37,8 @@ def make_model(model_cfg, *, device="cuda", generator: Optional[torch.Generator]
     The weights are drawn on the CPU from ``generator`` (a CPU
     ``torch.Generator``; a fresh unseeded one if None) and then moved, so a
     seed gives the same weights on every device."""
-    from . import unet, vq_unet, vqseghead  # noqa: F401  (register the networks)
+    from . import (deeplabv3, semiweednet, unet, vq_unet, vqseghead,  # noqa: F401
+                   vqvae)  # (register the networks)
 
     name = model_cfg["name"]
     params = dict(model_cfg["params"])

@@ -10,10 +10,14 @@ flagship), ``reptcps`` (``config/vqreptunet1x1.json`` and its siblings),
 ``vqatunet.json`` and the other attention networks), ``objcps``
 (``config/vqcanet_obj_loss.json``, ``vqimdbnet.json``), ``vqpt``
 (``config/vq_pt_unet.json``, ``vq_eu_pt_unet.json``, ``vq_nedpt_unet.json``,
-``vqash.json``, ``vqash_deep.json``, ``vqashv2.json``) and ``easyhard``
-(``config/vq_pt_unet_easyhard.json``); the other modes raise (ROADMAP.md,
-queue 1, item 11).  The JAX CLI's
-parallelism flags and ``--trace`` are not offered.
+``vqash.json``, ``vqash_deep.json``, ``vqashv2.json``), ``easyhard``
+(``config/vq_pt_unet_easyhard.json``), ``angularv3``
+(``config/vqreptunetangularv3.json``; ``vqreptunetangular.json`` trains
+under ``reptcps``), ``supconcps`` (``config/sup_con_loss.json``),
+``semiweed`` (``config/semiweednet.json``) and ``selfsup``
+(``config/vqvaev2_selfsup.json``); ``unimatch`` and ``salientcps`` raise
+(ROADMAP.md, queue 1, item 11).  The JAX CLI's parallelism flags and
+``--trace`` are not offered.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from .config import load_config
 
 MODES = ("cps", "sup", "selfsup", "plaincps", "unimatch", "salientcps", "vqpt", "reptcps",
          "angularv3", "easyhard", "objcps", "supconcps", "semiweed")
-PORTED = ("cps", "reptcps", "sup", "plaincps", "objcps", "vqpt", "easyhard")
+PORTED = ("cps", "reptcps", "sup", "plaincps", "objcps", "vqpt", "easyhard", "angularv3",
+          "supconcps", "semiweed", "selfsup")
 
 
 def main(argv=None):
@@ -44,7 +49,10 @@ def main(argv=None):
     trainer = {"cps": training.train, "reptcps": training.train_rept_cps,
                "sup": training.train_sup, "plaincps": training.train_plain_cps,
                "objcps": training.train_obj_cps, "vqpt": training.train_vqpt_cps,
-               "easyhard": training.train_easyhard_cps}[mode]
+               "easyhard": training.train_easyhard_cps,
+               "angularv3": training.train_angularv3_cps,
+               "supconcps": training.train_supcon_cps, "semiweed": training.train_semiweed,
+               "selfsup": training.train_selfsup}[mode]
     trainer(cfg, max_steps_per_epoch=opt.max_steps_per_epoch, device=opt.device)
 
 

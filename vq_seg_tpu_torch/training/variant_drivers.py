@@ -1,11 +1,12 @@
 """Variant drivers, counterparts of the JAX package's
 ``training/variant_drivers.py``: ``train_rept_cps``, ``train_plain_cps``,
-``train_obj_cps``, ``train_vqpt_cps`` and ``train_easyhard_cps``, with
+``train_obj_cps``, ``train_vqpt_cps``, ``train_easyhard_cps``,
+``train_angularv3_cps``, ``train_supcon_cps`` and ``train_semiweed``, with
 ``_Run`` (the run directory, loaders, epochs and checkpoints they share),
 ``plain_step`` (the step and optimizers of ``plaincps`` and ``objcps``) and
-``vqpt_step`` (the step of ``vqpt`` and ``easyhard``).  The other variant
-drivers of that module are in ROADMAP.md, queue 1, "Other losses and
-trainers".
+``vqpt_step`` (the step of ``vqpt`` and ``easyhard``).  The ``unimatch``
+and ``salientcps`` drivers of that module are in ROADMAP.md, queue 1,
+"Other losses and trainers".
 
 Like the JAX drivers they have no resume, no preemption guard, no bf16 and
 no decoder re-init: ``train.half`` and ``train.init_weights`` are not read,
@@ -27,7 +28,7 @@ from ..data.augmentations import make_cutout_mask
 from ..device import full_f32, resolve_device
 from ..losses import make_loss
 from ..utils.ckpoints import (fetch_ckpt_tree, load_vqvae_pretrained, save_ckpoints,
-                              wait_for_saves)
+                              save_tree, wait_for_saves)
 from ..utils.logger import Logger
 from ..utils.seed import seed_everything
 from ..utils.seg_tools import img_to_label
@@ -35,10 +36,11 @@ from ..utils.train_tools import freeze_encoder_adam, multi_lr_adam
 from .cps import (IGNORE, CPSTrainState, cps_init_phase, create_cps_state, epoch_summary,
                   evaluate, make_test_loader, model_cfg_with_bn, run_dir, semi_loaders)
 from .schedules import make_lr_schedule
-from .supervised import TrainState, init_phase
-from .variants import (make_easyhard_cps_train_step, make_objloss_cps_train_step,
-                       make_plain_cps_train_step, make_rept_cps_train_step,
-                       make_vqpt_cps_train_step)
+from .supervised import TrainState, create_state, init_phase
+from .variants import (make_angularv3_cps_train_step, make_easyhard_cps_train_step,
+                       make_objloss_cps_train_step, make_plain_cps_train_step,
+                       make_rept_cps_train_step, make_semiweed_train_step,
+                       make_supcon_cps_train_step, make_vqpt_cps_train_step)
 
 
 class _Run:
@@ -68,13 +70,16 @@ class _Run:
         self.schedule = make_lr_schedule(cfg.train, len(self.unsup_loader))
         self.tests = make_test_loader(cfg, device) if evaluate else None
 
-    def train(self, state: CPSTrainState, step: Callable, init: Callable,
-              history: Optional[list], epoch_args: Callable[[int], dict] = lambda e: {}):
+    def train(self, state, step: Callable, init: Callable, history: Optional[list],
+              epoch_args: Callable[[int], dict] = lambda e: {}):
         """The epochs: ``zip(cycle(sup), unsup)``, ``init(state, l_img,
         l_target)`` before the first step, ``step(state, l_img, l_target,
         ul_img, **epoch_args(epoch))``, then the epoch's line, evaluation of
         model 1 every ``test_every`` epochs and ``{e}ep.ckpt`` every 10
-        epochs and ``last.ckpt`` every epoch, the full contract."""
+        epochs and ``last.ckpt`` every epoch, the full contract.  A
+        one-model state (a supervised ``TrainState``) is evaluated and
+        written as ``last.ckpt`` = ``{model_1, epoch, optimizer_1}`` every
+        epoch."""
         cfg, p2l = self.cfg, self.cfg.pixel_to_label
         initted = False
         for epoch in range(cfg.train.num_epochs):
@@ -113,11 +118,17 @@ class _Run:
         if self.logger is not None:
             self.logger.log_dict.update(avg)
             self.logger.logging(epoch=epoch)
+        single = isinstance(state, TrainState)
         if self.tests is not None and epoch % cfg.train.test_every == 0:
-            record["test_miou"] = evaluate(state.model_1, self.tests, cfg.pixel_to_label,
-                                           cfg.num_classes, device=self.device)
+            record["test_miou"] = evaluate(state.model if single else state.model_1, self.tests,
+                                           cfg.pixel_to_label, cfg.num_classes,
+                                           device=self.device)
             print(f"test miou : {record['test_miou']}")
-        if self.ckpoints_dir is not None:
+        if self.ckpoints_dir is not None and single:
+            save_tree({"model_1": state.model, "epoch": epoch, "optimizer_1": state.opt},
+                      os.path.join(self.ckpoints_dir, "last.ckpt"))
+            record["ckpt_files"] = ["last.ckpt"]
+        elif self.ckpoints_dir is not None:
             # one host copy shared by the snapshot and last.ckpt
             host_ck = fetch_ckpt_tree(state.model_1, state.model_2, epoch, self.steps - 1,
                                       state.opt_1, state.opt_2)
@@ -266,44 +277,55 @@ def train_obj_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
 
 
 def vqpt_init_phase(state: CPSTrainState, l_img: torch.Tensor, l_target: torch.Tensor,
-                    init_codebook: bool = True):
+                    init_codebook: bool = True, extra: tuple = (), init_protos: bool = True):
     """The ``(x, gt)`` networks' init phase on the first labeled batch, as
-    the JAX drivers of ``vqpt`` and ``easyhard`` run it: one train-mode
-    forward with the labels of each model (running stats updated once),
-    model 1 from a generator seeded 0 and model 2 from 1, that sets the
-    codebooks to the k-means of the encoder features (unless
-    ``init_codebook`` is false: pretrained codebooks) and the prototype or
+    the JAX drivers of ``vqpt``, ``easyhard``, ``angularv3`` and
+    ``supconcps`` run it: one train-mode forward with the labels (and the
+    ``extra`` arguments) of each model (running stats updated once), model
+    1 from a generator seeded 0 and model 2 from 1, that sets the codebooks
+    to the k-means of the encoder features (unless ``init_codebook`` is
+    false: pretrained codebooks) and, with ``init_protos``, the prototype or
     embedding table by its ``pt_init``."""
+    kw = {"init_protos": True} if init_protos else {}
     for seed, model in enumerate((state.model_1, state.model_2)):
         was_training = model.training
         model.train()
         with torch.no_grad():
-            model(l_img, l_target, train=True, init_codebook=init_codebook, init_protos=True,
-                  generator=torch.Generator().manual_seed(seed))
+            model(l_img, l_target, *extra, train=True, init_codebook=init_codebook,
+                  generator=torch.Generator().manual_seed(seed), **kw)
         model.train(was_training)
     return state
 
 
 def vqpt_step(cfg, mode: str = "vqpt") -> Callable:
-    """The step of ``mode`` (``vqpt`` or ``easyhard``) as its driver builds
-    it from ``cfg``: the configured criterion (ignore index 255, its
-    weight), ``cps_loss_weight`` and ``total_commitment_loss_weight``, and
-    the prototype weight ``total_prototype_loss_weight``; for ``vqpt`` it
-    falls back to ``total_angular_loss_weight`` (the angular-head configs'
-    name), then 0.01, for ``easyhard`` to 0.01."""
+    """The step of ``mode`` (``vqpt``, ``easyhard``, ``angularv3`` or
+    ``supconcps``) as its driver builds it from ``cfg``: the configured
+    criterion (ignore index 255, its weight), ``cps_loss_weight`` and
+    ``total_commitment_loss_weight``, and the mode's own weight: the
+    prototype weight ``total_prototype_loss_weight`` (for ``vqpt`` falling
+    back to ``total_angular_loss_weight``, the angular-head configs' name,
+    then 0.01; for the others to 0.01) or ``supconcps``'s
+    ``total_sup_con_loss_weight`` (default 1); ``angularv3`` also takes the
+    criterion's weight for its CE."""
     tc = cfg.train
     criterion = make_loss(tc.criterion.name, cfg.num_classes, ignore_index=IGNORE,
                           weight=tc.criterion.get("weight"))
     kw = dict(num_classes=cfg.num_classes, cps_loss_weight=tc.get("cps_loss_weight", 1.0),
               commitment_loss_weight=tc.get("total_commitment_loss_weight", 1.0))
+    proto = tc.get("total_prototype_loss_weight", 0.01)
     if mode == "vqpt":
         return make_vqpt_cps_train_step(
             criterion, prototype_loss_weight=tc.get(
                 "total_prototype_loss_weight", tc.get("total_angular_loss_weight", 0.01)), **kw)
-    if mode != "easyhard":
-        raise ValueError(f"vqpt_step: mode {mode!r} is not vqpt or easyhard")
-    return make_easyhard_cps_train_step(
-        criterion, prototype_loss_weight=tc.get("total_prototype_loss_weight", 0.01), **kw)
+    if mode == "easyhard":
+        return make_easyhard_cps_train_step(criterion, prototype_loss_weight=proto, **kw)
+    if mode == "angularv3":
+        return make_angularv3_cps_train_step(criterion, prototype_loss_weight=proto,
+                                             ce_weight=tc.criterion.get("weight"), **kw)
+    if mode == "supconcps":
+        return make_supcon_cps_train_step(
+            criterion, sup_con_loss_weight=tc.get("total_sup_con_loss_weight", 1.0), **kw)
+    raise ValueError(f"vqpt_step: mode {mode!r} is not vqpt, easyhard, angularv3 or supconcps")
 
 
 @full_f32()
@@ -397,3 +419,137 @@ def train_easyhard_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="c
         return step(state, l_img, l_target, ul_img, *draw(ul_img.shape[-2:]))
 
     return run.train(state, easyhard_step, vqpt_init_phase, history)
+
+
+def angularv3_threshold(epoch: int, num_epochs: int) -> float:
+    """The ``angularv3`` driver's threshold of ``epoch``: ``(epoch + 1) /
+    num_epochs`` before epoch 70, then 0.7, rounded to f32 as JAX's traced
+    scalar is."""
+    return float(np.float32((epoch + 1) / num_epochs if epoch < 70 else 0.7))
+
+
+@full_f32()
+def train_angularv3_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
+                        history: Optional[list] = None):
+    """The ``angularv3`` driver (reference deprecated/train_angularv3.py)
+    for ``vqreptunetangularv3``.  Returns the final ``CPSTrainState``.
+
+    * Run directory ``{project_name}_angularv3_{n}``; loaders, ``steps``,
+      the LR schedule and plain Adam as ``train_rept_cps``;
+      ``encoder_weights`` is honoured.
+    * The init phase on the first labelled batch (the ``"labeled"`` split
+      at threshold 0): codebooks and embedding tables by k-means, model 1
+      from seed 0 and model 2 from 1.
+    * Per epoch the threshold of ``angularv3_threshold``; the step of
+      ``vqpt_step(cfg, "angularv3")``.
+    * ``evaluate`` of model 1 every ``test_every`` epochs; ``{e}ep.ckpt``
+      every 10 epochs and ``last.ckpt`` every epoch.
+    * f32 under ``device.full_f32``; ``half`` is not read.
+    * ``history``: a list that gets one dict per epoch.
+    """
+    device = resolve_device(device)
+    run = _Run(cfg, "angularv3", device, max_steps_per_epoch)
+    state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
+                             encoder_weights=cfg.model.params.get("encoder_weights"),
+                             device=device)
+    step = vqpt_step(cfg, "angularv3")
+    num_epochs = cfg.train.num_epochs
+
+    def init(state, l_img, l_target):
+        vqpt_init_phase(state, l_img, l_target, extra=("labeled", 0.0))
+
+    return run.train(state, step, init, history,
+                     lambda epoch: {"th": angularv3_threshold(epoch, num_epochs)})
+
+
+@full_f32()
+def train_supcon_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
+                     history: Optional[list] = None):
+    """The ``supconcps`` driver (reference deprecated/train_supcon_unet.py)
+    for ``supconvqunet``.  Returns the final ``CPSTrainState``.
+
+    * Run directory ``{project_name}_supconcps_{n}``; loaders, ``steps``,
+      the LR schedule and plain Adam as ``train_rept_cps``;
+      ``encoder_weights`` is honoured.
+    * The init phase on the first labelled batch (the ``"label"`` split):
+      codebooks by k-means, model 1 from seed 0 and model 2 from 1.
+    * The step of ``vqpt_step(cfg, "supconcps")``.
+    * ``evaluate`` of model 1 every ``test_every`` epochs; ``{e}ep.ckpt``
+      every 10 epochs and ``last.ckpt`` every epoch.
+    * f32 under ``device.full_f32``; ``half`` is not read.
+    * ``history``: a list that gets one dict per epoch.
+    """
+    device = resolve_device(device)
+    run = _Run(cfg, "supconcps", device, max_steps_per_epoch)
+    state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
+                             encoder_weights=cfg.model.params.get("encoder_weights"),
+                             device=device)
+    step = vqpt_step(cfg, "supconcps")
+
+    def init(state, l_img, l_target):
+        vqpt_init_phase(state, l_img, l_target, extra=("label",), init_protos=False)
+
+    return run.train(state, step, init, history)
+
+
+def semiweed_draws(cfg, device) -> Callable:
+    """The ``semiweed`` driver's per-step draws, ``draw() -> (case1, case2,
+    dropout)``: the two dihedral cases as the JAX driver draws them,
+    ``numpy.random.default_rng(seed).integers(0, 10)`` twice (1 and 2 flip,
+    anything else is the identity), and for each of the step's three passes
+    a callable that draws the ASPP's keep mask (probability 0.5) from a
+    generator on ``device``; both seeded ``train.seed`` (default 0)."""
+    seed = int(cfg.train.get("seed", 0))
+    rng = np.random.default_rng(seed)
+    generator = torch.Generator(device=device).manual_seed(seed)
+
+    def keep(shape):
+        return torch.rand(shape, generator=generator, device=device) < 0.5
+
+    def draw():
+        cases = [int(rng.integers(0, 10)) for _ in range(2)]
+        case1, case2 = (c if c in (1, 2) else 0 for c in cases)
+        return case1, case2, (keep, keep, keep)
+
+    return draw
+
+
+def semiweed_state(cfg, schedule, device) -> TrainState:
+    """The ``semiweed`` driver's model (drawn from seed 0) and its Adam;
+    ``encoder_weights`` is honoured."""
+    return create_state(cfg.model, schedule, encoder_weights=cfg.model.params.get(
+        "encoder_weights"), device=device)
+
+
+@full_f32()
+def train_semiweed(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
+                   history: Optional[list] = None):
+    """The ``semiweed`` driver (reference deprecated/semiweednet_train.py)
+    for ``semiweednet``: one model.  Returns the final ``TrainState``.
+
+    * Run directory ``{project_name}_semiweed_{n}``; loaders, ``steps``
+      and the LR schedule as ``train_rept_cps``; plain Adam; no init phase.
+    * Per step the draws of ``semiweed_draws`` and the step of
+      ``make_semiweed_train_step`` with the config's criterion,
+      ``overlap_size`` (default 240), ``ce_loss_weight`` and
+      ``dc_loss_weight``.
+    * ``evaluate`` every ``test_every`` epochs; ``last.ckpt`` = ``{model_1,
+      epoch, optimizer_1}`` every epoch, which the test CLI's sweep reads.
+    * f32 under ``device.full_f32``; ``half`` is not read.
+    * ``history``: a list that gets one dict per epoch.
+    """
+    device = resolve_device(device)
+    run = _Run(cfg, "semiweed", device, max_steps_per_epoch)
+    tc = cfg.train
+    criterion = make_loss(tc.criterion.name, cfg.num_classes, ignore_index=IGNORE,
+                          weight=tc.criterion.get("weight"))
+    state = semiweed_state(cfg, run.schedule, device)
+    step = make_semiweed_train_step(
+        criterion, num_classes=cfg.num_classes, overlap_size=tc.get("overlap_size", 240),
+        ce_loss_weight=tc.get("ce_loss_weight", 1.0), dc_loss_weight=tc.get("dc_loss_weight", 1.0))
+    draw = semiweed_draws(cfg, device)
+
+    def semiweed_step(state, l_img, l_target, ul_img):
+        return step(state, l_img, l_target, ul_img, *draw())
+
+    return run.train(state, semiweed_step, lambda *_: None, history)

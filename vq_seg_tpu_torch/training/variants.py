@@ -38,6 +38,17 @@ the *other* model's ``gt`` in its unlabeled train pass, then four
 train-mode passes, all in f32 under ``device.full_f32``.  ``easyhard``
 takes its pseudo-labels from an easy (flipped) view and trains on a hard
 (CutMix) view, with the mask and the flip given to the step.
+
+The ``angularv3`` step is CPS for ``vqreptunetangularv3`` (``(x, pred,
+split, th)``): the eval pseudo passes give score maps, which are the other
+model's ``pred`` on the ``"unlabeled"`` split at the epoch's threshold;
+the CPS targets keep the pixels whose largest score (no further softmax)
+exceeds it.  The ``supconcps`` step is the ``vqpt`` step's CPS for
+``supconvqunet`` with its contrastive loss on the two labeled passes.  The
+``semiweed`` step trains one ``semiweednet``: CE of the labeled pass and
+the diagonal-cosine loss between the MLP projections of two flipped,
+overlapping crops of the unlabeled batch, with the ASPP dropout masks
+given to it.  All run in f32 under ``device.full_f32``.
 """
 from __future__ import annotations
 
@@ -45,11 +56,12 @@ import torch
 
 from ..data.augmentations import cutmix
 from ..device import full_f32
-from ..losses import cross_entropy_loss
+from ..losses import cross_entropy_loss, dc_loss
 from ..metrics.measurement import confusion_matrix, miou
 from ..models.modules.prototype import percentile
 from ..utils.train_tools import set_lr
 from .cps import CPSTrainState
+from .supervised import TrainState
 
 IGNORE = 255
 
@@ -134,27 +146,32 @@ def make_rept_cps_train_step(criterion, *, num_classes: int, cps_loss_weight: fl
     return train_step
 
 
-def _gt_passes(state: CPSTrainState, l_img, l_target, pseudo_img, ul_img, mix=None):
-    """The ``(x, gt)`` networks' passes: each model's eval-mode argmax over
-    ``pseudo_img`` under ``torch.no_grad`` (mapped by ``mix`` where given),
-    then four train-mode passes sup 1, sup 2, unsup 1 on ``ul_img`` with
-    model 2's labels, unsup 2 with model 1's; the models are left in the
-    mode they were found in.  Returns the two pseudo-label maps and the
-    four outputs."""
+def _gt_passes(state: CPSTrainState, l_img, l_target, pseudo_img, ul_img, mix=None,
+               sup_args=(), unsup_args=(), argmax: bool = True):
+    """The ``(x, gt)`` networks' passes: each model's eval-mode prediction
+    over ``pseudo_img`` under ``torch.no_grad`` (its argmax, or the score
+    map itself without ``argmax``; mapped by ``mix`` where given), then
+    four train-mode passes sup 1, sup 2, unsup 1 on ``ul_img`` with model
+    2's labels, unsup 2 with model 1's, each followed by ``sup_args`` or
+    ``unsup_args``; the models are left in the mode they were found in.
+    Returns the two pseudo-label maps and the four outputs."""
     m1, m2 = state.model_1, state.model_2
     modes = (m1.training, m2.training)
     try:
         m1.eval()
         m2.eval()
         with torch.no_grad():
-            pl_1 = torch.argmax(m1(pseudo_img)[0], dim=1)
-            pl_2 = torch.argmax(m2(pseudo_img)[0], dim=1)
+            pl_1, pl_2 = m1(pseudo_img)[0], m2(pseudo_img)[0]
+            if argmax:
+                pl_1, pl_2 = torch.argmax(pl_1, dim=1), torch.argmax(pl_2, dim=1)
             if mix is not None:
                 pl_1, pl_2 = mix(pl_1), mix(pl_2)
         m1.train()
         m2.train()
-        outs = (m1(l_img, l_target, train=True), m2(l_img, l_target, train=True),
-                m1(ul_img, pl_2, train=True), m2(ul_img, pl_1, train=True))
+        outs = (m1(l_img, l_target, *sup_args, train=True),
+                m2(l_img, l_target, *sup_args, train=True),
+                m1(ul_img, pl_2, *unsup_args, train=True),
+                m2(ul_img, pl_1, *unsup_args, train=True))
     finally:
         m1.train(modes[0])
         m2.train(modes[1])
@@ -368,5 +385,153 @@ def make_objloss_cps_train_step(criterion, object_criterion, *, num_classes: int
         return state, _update(state, loss, pred_sup_1, l_target, num_classes,
                               cps_loss=cps_loss, sup_loss=sup_loss, obj_loss=obj_loss,
                               commitment_loss=commitment)
+
+    return train_step
+
+
+def make_angularv3_cps_train_step(dice_loss, *, num_classes: int, cps_loss_weight: float = 1.0,
+                                  commitment_loss_weight: float = 1.0,
+                                  prototype_loss_weight: float = 0.01, ce_weight=None):
+    """Build ``train_step(state, l_img, l_target, ul_img, th) -> (state,
+    metrics)``: angular-v3 CPS (reference deprecated/train_angularv3.py)
+    for ``vqreptunetangularv3``.
+
+    The eval pseudo passes give each model's score map; the labeled passes
+    take the labels on the ``"labeled"`` split at threshold 0, the
+    unlabeled passes the other model's score map on ``"unlabeled"`` at
+    ``th``.  The CPS target of each model's predictions is the other's
+    argmax where the other's largest score exceeds ``th`` (the raw score,
+    no softmax), else 255.  cps = 0.5 CE + dice of each pair; sup = 0.5 CE
+    + dice of each labeled pass; the four passes' commitment and angular
+    losses weighted.  ``metrics`` holds device tensors: loss, cps_loss,
+    sup_loss_1, sup_loss_2, commitment_loss, prototype_loss, code_usage,
+    miou (of ``pred_sup_1``) and iou_list."""
+
+    def ce(pred, target):
+        return cross_entropy_loss(pred, target, ignore_index=IGNORE, weight=ce_weight)
+
+    def filtered(pred, th):
+        label = torch.argmax(pred, dim=1)
+        return torch.where(torch.amax(pred, dim=1) > th, label, torch.full_like(label, IGNORE))
+
+    @full_f32()
+    def train_step(state: CPSTrainState, l_img, l_target, ul_img, th):
+        _, outs = _gt_passes(state, l_img, l_target, ul_img, ul_img, sup_args=("labeled", 0.0),
+                             unsup_args=("unlabeled", th), argmax=False)
+        pred_sup_1, pred_sup_2, pred_ul_1, pred_ul_2 = (o[0] for o in outs)
+        pred_1 = torch.cat([pred_sup_1, pred_ul_1])
+        pred_2 = torch.cat([pred_sup_2, pred_ul_2])
+        with torch.no_grad():
+            filt_1, filt_2 = filtered(pred_1, th), filtered(pred_2, th)
+        cps_loss = (0.5 * ce(pred_1, filt_2) + 0.5 * ce(pred_2, filt_1)
+                    + dice_loss(pred_1, filt_2) + dice_loss(pred_2, filt_1))
+        sup_loss_1 = 0.5 * ce(pred_sup_1, l_target) + dice_loss(pred_sup_1, l_target)
+        sup_loss_2 = 0.5 * ce(pred_sup_2, l_target) + dice_loss(pred_sup_2, l_target)
+        commitment, prototype, usage = _vq_terms(outs, commitment_loss_weight,
+                                                 prototype_loss_weight)
+        loss = sup_loss_1 + sup_loss_2 + cps_loss_weight * cps_loss + commitment + prototype
+        return state, _update(state, loss, pred_sup_1, l_target, num_classes,
+                              cps_loss=cps_loss, sup_loss_1=sup_loss_1, sup_loss_2=sup_loss_2,
+                              commitment_loss=commitment, prototype_loss=prototype,
+                              code_usage=usage)
+
+    return train_step
+
+
+def make_supcon_cps_train_step(criterion, *, num_classes: int, cps_loss_weight: float = 1.0,
+                               commitment_loss_weight: float = 1.0,
+                               sup_con_loss_weight: float = 1.0):
+    """Build ``train_step(state, l_img, l_target, ul_img) -> (state,
+    metrics)``: SupCon CPS (reference deprecated/train_supcon_unet.py) for
+    ``supconvqunet``.
+
+    As the ``vqpt`` step, with the labeled passes on the ``"label"`` split,
+    which adds each model's supervised-contrastive loss, weighted by
+    ``sup_con_loss_weight``; sup = the criterion of both labeled passes.
+    ``metrics`` holds device tensors: loss, cps_loss, sup_loss,
+    sup_con_loss, commitment_loss, code_usage, miou (of ``pred_sup_1``) and
+    iou_list."""
+
+    @full_f32()
+    def train_step(state: CPSTrainState, l_img, l_target, ul_img):
+        _, outs = _gt_passes(state, l_img, l_target, ul_img, ul_img, sup_args=("label",),
+                             unsup_args=(None,))
+        pred_sup_1, pred_sup_2, pred_ul_1, pred_ul_2 = (o[0] for o in outs)
+        pred_1 = torch.cat([pred_sup_1, pred_ul_1])
+        pred_2 = torch.cat([pred_sup_2, pred_ul_2])
+        with torch.no_grad():
+            pseudo_1, pseudo_2 = torch.argmax(pred_1, dim=1), torch.argmax(pred_2, dim=1)
+        cps_loss = criterion(pred_1, pseudo_2) + criterion(pred_2, pseudo_1)
+        sup_loss = criterion(pred_sup_1, l_target) + criterion(pred_sup_2, l_target)
+        commitment = sum(o[1] for o in outs) * commitment_loss_weight
+        sup_con = (outs[0][3] + outs[1][3]) * sup_con_loss_weight
+        loss = sup_loss + cps_loss_weight * cps_loss + commitment + sup_con
+        return state, _update(state, loss, pred_sup_1, l_target, num_classes,
+                              cps_loss=cps_loss, sup_loss=sup_loss, sup_con_loss=sup_con,
+                              commitment_loss=commitment,
+                              code_usage=sum(o[2] for o in outs) / 4.0)
+
+    return train_step
+
+
+def overlapped_patches(ul_img: torch.Tensor, overlap_size: int = 240):
+    """Two overlapping square crops of an (N, C, H, W) batch, ``overlap_size
+    + overlap_size // 3`` wide, the first ``overlap_size // 3`` up and left
+    of the second, which sits ``overlap_size // 2`` up and left of the
+    centre."""
+    h, w = ul_img.shape[-2:]
+    add = overlap_size // 3
+    patch = overlap_size + add
+    hc, wc = h // 2, w // 2
+    y1, x1 = hc - overlap_size // 2 - add, wc - overlap_size // 2 - add
+    y2, x2 = hc - overlap_size // 2, wc - overlap_size // 2
+    return (ul_img[..., y1:y1 + patch, x1:x1 + patch],
+            ul_img[..., y2:y2 + patch, x2:x2 + patch])
+
+
+def make_semiweed_train_step(criterion, *, num_classes: int, overlap_size: int = 240,
+                             ce_loss_weight: float = 1.0, dc_loss_weight: float = 1.0):
+    """Build ``train_step(state, l_img, l_target, ul_img, case1, case2,
+    dropout=(None, None, None)) -> (state, metrics)``: SemiWeedNet's
+    contrastive semi-supervision (reference
+    deprecated/semiweednet_train.py) for one model (a supervised
+    ``TrainState``).
+
+    Three train-mode passes, the BN statistics threaded through them: the
+    labeled batch (``issup``), then each of the two ``overlapped_patches``
+    of the unlabeled batch after its ``dihedral`` flip (``case1``,
+    ``case2``), whose MLP projections enter the diagonal-cosine loss.
+    ``dropout`` gives each pass's ASPP dropout (a callable ``shape ->
+    mask``, ``models/networks/deeplabv3.py``).  loss =
+    ``ce_loss_weight`` x criterion(labeled pass) + ``dc_loss_weight`` x
+    dc.  ``metrics`` holds device tensors: loss, ce_loss, dc_loss, miou and
+    iou_list."""
+
+    @full_f32()
+    def train_step(state: TrainState, l_img, l_target, ul_img, case1: int, case2: int,
+                   dropout=(None, None, None)):
+        model = state.model
+        p1, p2 = overlapped_patches(ul_img, overlap_size)
+        p1, p2 = dihedral(p1, case1), dihedral(p2, case2)
+        was_training = model.training
+        model.train()
+        try:
+            pred_sup, _ = model(l_img, issup=True, train=True, dropout=dropout[0])
+            _, mlp1 = model(p1, train=True, dropout=dropout[1])
+            _, mlp2 = model(p2, train=True, dropout=dropout[2])
+        finally:
+            model.train(was_training)
+        ce = criterion(pred_sup, l_target)
+        dc = dc_loss(mlp1, mlp2)
+        loss = ce_loss_weight * ce + dc_loss_weight * dc
+        state.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        set_lr(state.opt, state.schedule(state.step))
+        state.opt.step()
+        state.step += 1
+        with torch.no_grad():
+            step_miou, iou_list = miou(confusion_matrix(pred_sup, l_target, num_classes))
+        return state, dict(loss=loss.detach(), ce_loss=ce.detach(), dc_loss=dc.detach(),
+                           miou=step_miou, iou_list=iou_list)
 
     return train_step

@@ -21,8 +21,9 @@ files.
   * ``latest_ckpt`` finds the newest run's ``last.ckpt`` for
     ``resume: "auto"``; ``save_tar`` gzips and removes a run directory;
   * ``save_vqvae`` writes a network's encoder, codebooks and decoder to
-    three files, and ``load_vqvae_pretrained`` loads the first two into
-    another network (``train.pretrained`` of the ``vqpt`` trainer).
+    three files (a VQ-VAE's every epoch of the ``selfsup`` trainer), and
+    ``load_vqvae_pretrained`` loads the first two into another network
+    (``train.pretrained`` of the ``vqpt`` trainer).
 
 ``write_log`` holds ``{"path", "bytes", "seconds"}`` for each finished
 write.
@@ -193,22 +194,26 @@ def latest_ckpt(save_dir: str):
 
 
 def _vqvae_parts(model: nn.Module):
-    """The module holding ``encoder``, ``codebooks`` and ``decoder``: the
-    U-Nets' ``core``, else the network itself."""
-    return model.core if hasattr(model, "core") else model
+    """(encoder, codebooks, decoder) of ``model``: the U-Nets' ``core``, else
+    the network itself (the VQ-VAEs: ``vqvaev2``'s per-stage ``codebooks``,
+    ``vqvaev1``'s one ``codebook``)."""
+    host = model.core if hasattr(model, "core") else model
+    codebooks = host.codebooks if hasattr(host, "codebooks") else host.codebook
+    return host.encoder, codebooks, host.decoder
 
 
 def save_vqvae(model: nn.Module, epoch: int, ckpoints_dir: str):
     """Write ``{epoch}ep_encoder.ckpt`` (the encoder's state dict),
-    ``{epoch}ep_codebook.ckpt`` (each VQ stage's codebook by its key in the
-    codebook list, e.g. ``"2.embedding"``) and ``{epoch}ep_decoder.ckpt``
-    (the decoder's state dict) under ``ckpoints_dir``, as ``torch.save``
-    dicts, synchronously."""
-    parts = _vqvae_parts(model)
-    for name, tree in (("encoder", parts.encoder.state_dict()),
-                       ("codebook", parts.codebooks.state_dict()),
-                       ("decoder", parts.decoder.state_dict())):
-        save_tree(dict(tree), os.path.join(ckpoints_dir, f"{epoch}ep_{name}.ckpt"),
+    ``{epoch}ep_codebook.ckpt`` (the codebooks' state dict: each VQ stage's
+    codebook by its key in the codebook list, e.g. ``"2.embedding"``, or
+    ``vqvaev1``'s ``"embedding"``) and ``{epoch}ep_decoder.ckpt`` (the
+    decoder's state dict) under ``ckpoints_dir`` (made where missing), as
+    ``torch.save`` dicts, synchronously.  A U-Net's parts sit under
+    ``core``, a VQ-VAE's at its top level."""
+    encoder, codebooks, decoder = _vqvae_parts(model)
+    os.makedirs(ckpoints_dir, exist_ok=True)
+    for name, part in (("encoder", encoder), ("codebook", codebooks), ("decoder", decoder)):
+        save_tree(dict(part.state_dict()), os.path.join(ckpoints_dir, f"{epoch}ep_{name}.ckpt"),
                   async_save=False)
 
 
@@ -219,15 +224,15 @@ def load_vqvae_pretrained(model: nn.Module, encoder_ckpt: str, codebook_ckpt: st
     codebook matches.  Returns ``model``."""
     import warnings
 
-    parts = _vqvae_parts(model)
-    parts.encoder.load_state_dict(load_full(encoder_ckpt))
-    target = parts.codebooks.state_dict()
+    encoder, codebooks, _ = _vqvae_parts(model)
+    encoder.load_state_dict(load_full(encoder_ckpt))
+    target = codebooks.state_dict()
     matched = {k: v for k, v in load_full(codebook_ckpt).items()
                if k in target and tuple(target[k].shape) == tuple(v.shape)}
     if not matched:
         warnings.warn(f"no codebook of {codebook_ckpt} matches a stage of the network: "
                       "skipped", stacklevel=2)
-    parts.codebooks.load_state_dict(matched, strict=False)
+    codebooks.load_state_dict(matched, strict=False)
     return model
 
 

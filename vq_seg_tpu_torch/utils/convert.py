@@ -37,7 +37,19 @@ The tree comes as nested dicts of numpy arrays (the caller does
     ``Dense`` kernels (in, out) -> ``Linear`` (out, in), ``gamma``) and the
     ``codebook/segmentation_head/embedding`` of ``vqsegheadnet``.
     flax's auto-names (``ConvPad_{k}``, ``Dense_{k}``...) become the port's
-    attribute names, module by module.
+    attribute names, module by module;
+  * the DeepLab trees (top-level ``encoder``; ``ASPP_0`` and
+    ``ConvBNReLU_0`` of ``deeplabv3``; the ``decoder`` of ``deeplabv3plus``
+    and ``semiweednet`` with its ``ASPP_0``, ``SeparableConvBNReLU_{0,1}``
+    and 48-channel ``ConvBNReLU_0``; ``semiweednet``'s ``ska`` and
+    ``mlp_{0,1}`` ``Dense`` layers), whose ``SegmentationHead`` is
+    ``segmentation_head/ConvPad_0`` (the port's ``segmentation_head.conv``);
+    the angular v3 head (``ConvPad_0`` and ``embedding``, as v2's);
+  * the VQ-VAE trees: top-level ``encoder``, codebooks
+    ``codebook/VectorQuantizer_{n}`` (``vqvaev2``) or ``codebook/codebook``
+    (``vqvaev1``), and the ``decoder``'s ``ConvPad_0``, ``ResBlock_{i}``
+    and ``ConvTranspose_{j}``, whose (kh, kw, in, out) kernel becomes
+    ``ConvTranspose2d``'s (in, out, kh, kw) flipped in both spatial axes.
 
 ``cps_state_from_flax`` loads both models of a JAX ``CPSTrainState`` into a
 port ``CPSTrainState``; ``sup_state_from_flax`` the one model of a JAX
@@ -89,6 +101,64 @@ def _cbr(sd: dict, name: str, p: Mapping, s: Mapping):
 def _contrast(sd: dict, name: str, p: Mapping):
     _conv(sd, f"{name}.fc1", p["ConvPad_0"]["Conv_0"])
     _conv(sd, f"{name}.fc2", p["ConvPad_1"]["Conv_0"])
+
+
+def _sep(sd: dict, name: str, p: Mapping, s: Mapping):
+    """``SeparableConvBNReLU``: depthwise ``ConvPad_0``, pointwise
+    ``ConvPad_1``, a flax ``BatchNorm_0``."""
+    _conv(sd, f"{name}.depthwise", p["ConvPad_0"]["Conv_0"])
+    _conv(sd, f"{name}.pointwise", p["ConvPad_1"]["Conv_0"])
+    _bn(sd, f"{name}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+
+def _aspp(sd: dict, name: str, p: Mapping, s: Mapping):
+    """``ASPP``: ``ConvBNReLU_0`` (the 1x1 branch), then per rate a
+    ``SeparableConvBNReLU_{i}`` (separable) or a ``ConvBNReLU_{i + 1}``,
+    then the pooled branch and the projection, the last two
+    ``ConvBNReLU``s."""
+    cbrs = sorted((k for k in p if k.startswith("ConvBNReLU_")), key=lambda k: int(k[11:]))
+    seps = sorted((k for k in p if k.startswith("SeparableConvBNReLU_")),
+                  key=lambda k: int(k[20:]))
+    _cbr(sd, f"{name}.b0", p[cbrs[0]], s[cbrs[0]])
+    for i, key in enumerate(seps or cbrs[1:-2]):
+        (_sep if seps else _cbr)(sd, f"{name}.rates.{i}", p[key], s[key])
+    _cbr(sd, f"{name}.pool", p[cbrs[-2]], s[cbrs[-2]])
+    _cbr(sd, f"{name}.project", p[cbrs[-1]], s[cbrs[-1]])
+
+
+def _deeplab_decoder(sd: dict, name: str, p: Mapping, s: Mapping):
+    _aspp(sd, f"{name}.aspp", p["ASPP_0"], s["ASPP_0"])
+    _sep(sd, f"{name}.aspp_sep", p["SeparableConvBNReLU_0"], s["SeparableConvBNReLU_0"])
+    _cbr(sd, f"{name}.block1", p["ConvBNReLU_0"], s["ConvBNReLU_0"])
+    _sep(sd, f"{name}.block2", p["SeparableConvBNReLU_1"], s["SeparableConvBNReLU_1"])
+
+
+def _conv_transpose(sd: dict, name: str, p: Mapping):
+    """flax ``ConvTranspose`` (kh, kw, in, out), not flipped -> torch
+    ``ConvTranspose2d`` (in, out, kh, kw), flipped."""
+    k = np.asarray(p["kernel"])[::-1, ::-1]
+    sd[f"{name}.weight"] = _t(np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))))
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _vqvae_decoder(sd: dict, name: str, p: Mapping, s: Mapping):
+    _conv(sd, f"{name}.conv_in", p["ConvPad_0"]["Conv_0"])
+    for i in range(sum(k.startswith("ResBlock_") for k in p)):
+        block = p[f"ResBlock_{i}"]
+        _conv(sd, f"{name}.resblocks.{i}.conv1", block["ConvPad_0"]["Conv_0"])
+        _conv(sd, f"{name}.resblocks.{i}.conv2", block["ConvPad_1"]["Conv_0"])
+    for j in range(sum(k.startswith("ConvTranspose_") for k in p)):
+        _conv_transpose(sd, f"{name}.up.{j}", p[f"ConvTranspose_{j}"])
+
+
+def _ska(sd: dict, name: str, p: Mapping, s: Mapping):
+    """``SKA``: one ``ConvBNReLU`` per branch, the squeeze ``ConvBNReLU``
+    (the last) and the ``ConvPad_0`` select."""
+    branches = sum(k.startswith("ConvBNReLU_") for k in p) - 1
+    for i in range(branches):
+        _cbr(sd, f"{name}.branches.{i}", p[f"ConvBNReLU_{i}"], s[f"ConvBNReLU_{i}"])
+    _cbr(sd, f"{name}.squeeze", p[f"ConvBNReLU_{branches}"], s[f"ConvBNReLU_{branches}"])
+    _conv(sd, f"{name}.select", p["ConvPad_0"]["Conv_0"])
 
 
 def _cca(sd: dict, name: str, p: Mapping, s: Mapping):
@@ -192,6 +262,43 @@ _CORE_HOOKS = (("att_", _dual, None), ("cca", _cca, None), ("imdb", _imdb, None)
                ("drsam_", _drsam, None), ("mixer_stem", _mixer, "encoder.custom_stem"))
 
 
+def _top_level(sd: dict, params: Mapping, stats: Mapping, codebooks: Mapping,
+                num_embeddings):
+    """The children of a network without a ``core``: ``vqcanetv2``
+    (encoder, codebooks, U-Net decoder), ``vqcanetv4`` (its auto-named
+    ccavq encoder), the DeepLab networks and the VQ-VAEs.  The head is
+    mapped by the caller."""
+    for key, sub in params.items():
+        st = stats.get(key, {})
+        if key == "encoder":
+            _encoder(sd, "encoder.", sub, st)
+        elif key == "CCAVQResNetEncoder_0":
+            _encoder(sd, "encoder.backbone.", sub["backbone"], st["backbone"])
+            _codebooks(sd, "encoder.codebooks.", codebooks.get(key, {}), num_embeddings)
+        elif key == "decoder":
+            if "ASPP_0" in sub:
+                _deeplab_decoder(sd, "decoder", sub, st)
+            elif "ConvPad_0" in sub:
+                _vqvae_decoder(sd, "decoder", sub, st)
+            else:
+                _decoder(sd, "decoder.", sub, st)
+        elif key == "ASPP_0":  # deeplabv3
+            _aspp(sd, "aspp", sub, st)
+        elif key == "ConvBNReLU_0":  # deeplabv3
+            _cbr(sd, "conv", sub, st)
+        elif key == "ska":
+            _ska(sd, "ska", sub, st)
+        elif key in ("mlp_0", "mlp_1"):
+            _linear(sd, key, sub)
+        elif key not in ("segmentation_head", "prototype_loss"):
+            raise ValueError(f"no mapping for params/{key}")
+    if "encoder" in params:
+        if "codebook" in codebooks:  # vqvaev1's one codebook
+            sd["codebook.embedding"] = _t(codebooks["codebook"]["embedding"])
+        else:  # none for the DeepLab networks (num_embeddings None)
+            _codebooks(sd, "codebooks.", codebooks, num_embeddings)
+
+
 def state_dict_from_flax(variables: Mapping,
                          num_embeddings: Optional[Sequence[int]] = (0, 0, 512, 512, 512)) -> dict:
     """Variables of a ported network -> the port's state_dict.  A subtree
@@ -212,24 +319,18 @@ def state_dict_from_flax(variables: Mapping,
                     raise ValueError(f"no mapping for params/core/{key}")
                 hook[1](sd, f"core.{hook[2] or key}", sub, cs.get(key, {}))
         _codebooks(sd, "core.codebooks.", codebooks.get("core", {}), num_embeddings)
-    else:  # vqcanetv2 (encoder) and vqcanetv4 (its ccavq encoder is auto-named)
-        if "encoder" in params:
-            _encoder(sd, "encoder.", params["encoder"], stats["encoder"])
-            _codebooks(sd, "codebooks.", codebooks, num_embeddings)
-        else:
-            key = "CCAVQResNetEncoder_0"
-            _encoder(sd, "encoder.backbone.", params[key]["backbone"], stats[key]["backbone"])
-            _codebooks(sd, "encoder.codebooks.", codebooks.get(key, {}), num_embeddings)
-        _decoder(sd, "decoder.", params["decoder"], stats["decoder"])
+    else:  # networks without a core: their children at the top level
+        _top_level(sd, params, stats, codebooks, num_embeddings)
 
     if "segmentation_head_0" in params:
         for i in range(2):
             _conv(sd, f"segmentation_head.{i}", params[f"segmentation_head_{i}"]["Conv_0"])
     elif "segmentation_head" in params:
         head = params["segmentation_head"]
-        if "ConvPad_0" in head:  # an angular head
+        if "ConvPad_0" in head:  # an angular head, or a SegmentationHead
             _conv(sd, "segmentation_head.conv", head["ConvPad_0"]["Conv_0"])
-            sd["segmentation_head.embedding"] = _t(head["embedding"])
+            if "embedding" in head:
+                sd["segmentation_head.embedding"] = _t(head["embedding"])
         else:
             _conv(sd, "segmentation_head",
                   head["conv"]["Conv_0"] if "conv" in head else head["Conv_0"])
