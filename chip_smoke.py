@@ -63,7 +63,7 @@ check does not hold:
    times, the driver's ms per step against phase 6's p50 and the
    checkpoints' bytes and seconds are printed.  The kernel is held
    against its plain version at the evaluation forward's shapes (batch
-   1).  The tree stays for phases 8 to 12 and is deleted after them.
+   1).  The tree stays for phases 8 to 13 and is deleted after them.
 8. the ``reptcps`` family at full width: ``config/vqreptunet1x1.json``
    (resnet50, K=512, 448x448) in f32, as the JAX driver runs it, batch 4+4
    at drop percent 80, random weights from a seed.  The phase runs under
@@ -149,7 +149,33 @@ check does not hold:
    its codebooks the selfsup run's), the test CLI and
    ``Predictor.from_checkpoint`` on the angularv3 run's ``last.ckpt`` (12,
    3).
-13. one ``{"kernels": [...]}`` JSON line, the card line, and last
+13. ``config/obia_CWFID.json``, ``unimatch``, ``salientcps`` and the rest of
+   the registry at full width.  The host work first, in worker processes:
+   an OBIA tree (8 labelled, 8 unlabelled and 4 test images at
+   ``OBIA_WH``) whose ``obia/`` pseudo-masks the port's
+   ``build_pseudo_labels`` writes (SLIC, features, its own forest), and
+   the port's ``get_saliency_rbd`` maps of a 448x448 tree; their seconds
+   are printed.  (a) ``obia_CWFID.json`` (fcn32s on vgg19, 512x512, batch
+   8, bf16): 2 warm-up and 3 timed steps (p50, peak memory) and one
+   profiled, then the sup driver for one epoch on the OBIA tree (the
+   unresolved ``imagenet`` weights must warn), the test CLI's sweep and
+   ``Predictor.from_checkpoint``: no launch.  (b) ``--mode unimatch`` at
+   ``semiweednet.json``'s width (resnet50 at output stride 16, 448x448,
+   batch 4+4, f32): 2 warm-up, 3 timed and 1 profiled step, then
+   ``train_unimatch`` for one epoch on phase 7's tree with its
+   evaluation: no launch.  (c) ``--mode salientcps`` at the flagship's
+   width (``VQUnetwithSalientloss``, resnet50, K=512, 448x448, batch 4+4,
+   f32): the init phase (exactly 6 launches), 2 warm-up, 3 timed and 1
+   profiled step (exactly 12 each), the kernel against its plain version
+   at a train pass's shapes, the kernel step against the plain-VQ step
+   (loss terms within 1e-6, gradients within 1e-4), and
+   ``train_salient_cps`` for one epoch on the saliency tree (6 + 12 per
+   step).  (d) one step of ``vqunet_v1`` (resnet50, K=512 at the deepest
+   stage, 448x448, sup, bf16: exactly 1 launch per forward, and the kernel
+   at its (4 x 14^2, 2048, 512) shape) and ``unetoriginal`` (512x512, no
+   launch), and one ``cps`` step of ``nopt`` and ``scheme6`` (the
+   flagship's config with the name swapped: 6 at init, 18 per step).
+14. one ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -247,6 +273,14 @@ ANGULAR_TERMS = LOSS_TERMS
 SUPCON_TERMS = ("loss", "cps_loss", "sup_loss", "sup_con_loss", "commitment_loss")
 SEMIWEED_TERMS = ("loss", "ce_loss", "dc_loss")
 SELFSUP_TERMS = ("loss", "recon_loss", "commitment_loss")
+# phase 13: obia_CWFID.json (fcn32s), unimatch, salientcps and the rest of
+# the registry; OBIA's tree at OBIA_WH (SLIC and the forest on the host),
+# the saliency maps at the salientcps resize
+OBIA_CONFIG = "obia_CWFID"
+OBIA_WH, SALIENT_WH = 256, 448
+REST_LABELLED, REST_UNLABELLED = 8, 8
+REST_WARMUP, REST_TIMED = 2, 3
+SALIENT_TERMS = ("loss", "cps_loss", "salient_loss", "commitment_loss")
 # the device kernels of csrc/vq_assign.cu, as the profiler names them
 VQ_KERNEL_NAMES = ("void (anonymous namespace)::vq_mma_kernel",
                    "void (anonymous namespace)::vq_finish_kernel")
@@ -2090,6 +2124,444 @@ def slice_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root:
     return out
 
 
+def write_rest_tree(root: str, wh: int, n_lab: int, n_unlab: int, n_test: int, rng) -> None:
+    """A PNG tree for phase 13 at ``wh`` x ``wh``: stripes of the three
+    classes moved by a class in 32-pixel cells, coloured per class with
+    +-4 of noise (smooth enough for SLIC's connectivity pass to stay
+    cheap), ``n_lab`` labelled and ``n_unlab`` unlabelled train images and
+    ``n_test`` labelled test images."""
+    from vq_seg_tpu_torch.utils.visualize import write_png
+
+    stripes = (np.arange(wh) * 6 // wh)[None, :]
+    colours = np.array([[40, 40, 40], [60, 160, 60], [160, 60, 60]], np.int16)
+    for split, lab, unlab in (("train", n_lab, n_unlab), ("test", n_test, 0)):
+        for sub in ("input", "target"):
+            os.makedirs(os.path.join(root, split, sub))
+        for i in range(lab + unlab):
+            cells = rng.integers(0, 2, (wh // 32 + 1, wh // 32 + 1))
+            shift = np.kron(cells, np.ones((32, 32), int))
+            label = (stripes + shift[:wh, :wh]) % 3
+            img = np.clip(colours[label] + rng.integers(-4, 5, (wh, wh, 3)), 0, 255)
+            write_png(os.path.join(root, split, "input", f"im{i:03d}.png"), img.astype(np.uint8),
+                      level=1)
+            if i < lab:
+                write_png(os.path.join(root, split, "target", f"im{i:03d}.png"),
+                          np.array([0, 128, 255], np.uint8)[label], level=1)
+
+
+def saliency_job(src: str, dst: str) -> float:
+    """The port's ``get_saliency_rbd`` map of the PNG ``src`` written as a
+    gray PNG ``dst`` at the image's size; returns the seconds it took (run
+    in a worker process)."""
+    from PIL import Image
+
+    from vq_seg_tpu_torch.tools.saliency import get_saliency_rbd
+    from vq_seg_tpu_torch.utils.visualize import write_png
+
+    t0 = time.perf_counter()
+    img = np.asarray(Image.open(src).convert("RGB")) / 255.0
+    write_png(dst, np.round(get_saliency_rbd(img) * 255).astype(np.uint8), level=1)
+    return time.perf_counter() - t0
+
+
+def obia_job(train_dir: str) -> float:
+    """The port's ``build_pseudo_labels`` over ``train_dir`` into its
+    ``obia/``; returns the seconds it took (run in a worker process)."""
+    from vq_seg_tpu_torch.tools.obia import build_pseudo_labels
+
+    t0 = time.perf_counter()
+    build_pseudo_labels(train_dir, os.path.join(train_dir, "obia"),
+                        {"0": 0, "128": 1, "255": 2})
+    return time.perf_counter() - t0
+
+
+def rest_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: str) -> dict:
+    """Phase 13: ``config/obia_CWFID.json`` (fcn32s on vgg19, 512^2, batch
+    8, bf16), ``--mode unimatch`` and ``--mode salientcps`` at full width,
+    and one step of ``vqunet_v1``, ``unetoriginal``, ``nopt`` and
+    ``scheme6``.  Returns the launches of each path, the timings and the
+    kernel's cases at the new shapes."""
+    import multiprocessing
+    import warnings
+    from concurrent.futures import ProcessPoolExecutor
+
+    from vq_seg_tpu_torch import load_config
+    from vq_seg_tpu_torch import test as test_cli
+    from vq_seg_tpu_torch.device import resolve_device
+    from vq_seg_tpu_torch.losses import make_loss
+    from vq_seg_tpu_torch.serving import Predictor
+    from vq_seg_tpu_torch.training import (cps_init_phase, create_cps_state, make_cps_train_step,
+                                           make_lr_schedule, make_unimatch_train_step,
+                                           plain_init_phase, salient_step, supervised,
+                                           train_salient_cps, train_unimatch, unimatch_draws)
+    from vq_seg_tpu_torch.training.cps import model_cfg_with_bn
+    from vq_seg_tpu_torch.training.variant_drivers import unimatch_state
+    from vq_seg_tpu_torch.utils import ckpoints
+
+    out = {"cases": []}
+    contract = {"model_1", "model_2", "epoch", "batch_idx", "optimizer_1", "optimizer_2"}
+    dev = resolve_device("cuda")
+
+    def cfg_of(name):
+        return load_config(os.path.join(ROOT, "config", f"{name}.json"))
+
+    def kernel_cases(tag, forward, expect):
+        captured = capture_vq_shapes(vector_quantizer, forward)
+        check(len(captured) == expect, f"{tag}: captured {len(captured)} VQ calls, not {expect}")
+        for i, (x, cb, metric) in enumerate(captured):
+            r = compare_vq(f"{tag}-{i}", x, cb, metric, vq_cuda, vq_assign_reference)
+            out["cases"].append(r)
+            print(f"[zoo-rest-kernel] vq_assign {r['case']} N={r['n']} C={r['c']} K={r['k']}: "
+                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); near-tie rows {r['near_ties']} "
+                  f"(max f64 score gap {r['max_abs_err']:.3e}) | {card}")
+
+    # -- the host work: the OBIA pseudo-labels and the saliency maps, in
+    # worker processes beside each other ----------------------------------------------------
+    obia_root, sal_root = os.path.join(root, "obia_tree"), os.path.join(root, "salient_tree")
+    rng = np.random.default_rng(SEED + 13)
+    write_rest_tree(obia_root, OBIA_WH, REST_LABELLED, REST_UNLABELLED, DRIVER_TEST, rng)
+    write_rest_tree(sal_root, SALIENT_WH, REST_LABELLED, REST_UNLABELLED, 0, rng)
+    sal_dir = os.path.join(root, "salient_maps")
+    os.makedirs(sal_dir)
+    names = sorted(os.listdir(os.path.join(sal_root, "train", "input")))
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1), mp_context=ctx) as pool:
+        obia_future = pool.submit(obia_job, os.path.join(obia_root, "train"))
+        sal_s = list(pool.map(saliency_job,
+                              [os.path.join(sal_root, "train", "input", n) for n in names],
+                              [os.path.join(sal_dir, n) for n in names]))
+        obia_s = obia_future.result()
+    host_s = time.perf_counter() - t0
+    n_obia = len(os.listdir(os.path.join(obia_root, "train", "obia")))
+    check(n_obia == REST_UNLABELLED, f"OBIA wrote {n_obia} pseudo-masks")
+    print(f"[obia] build_pseudo_labels ({REST_LABELLED} labelled, {REST_UNLABELLED} pseudo-"
+          f"labelled images at {OBIA_WH}x{OBIA_WH}: SLIC, features, a 100-tree forest) "
+          f"{obia_s:.2f} s; get_saliency_rbd of {len(names)} images at {SALIENT_WH}x"
+          f"{SALIENT_WH} {min(sal_s):.2f}-{max(sal_s):.2f} s each; {host_s:.2f} s of host time "
+          f"in {min(8, os.cpu_count() or 1)} worker processes | {card}")
+    out["host_s"] = {"obia": obia_s, "saliency_max": max(sal_s), "wall": host_s}
+
+    # -- (a) obia_CWFID.json at full width ---------------------------------------------------
+    c = cfg_of(OBIA_CONFIG)
+    hw, tc, nc = int(c.resize), c.train, int(c.num_classes)
+    half = bool(tc.half)
+    n_steps = REST_WARMUP + REST_TIMED + 1
+    batches = train_batches(np.random.default_rng(SEED + 13), n_steps, hw, tc.batch_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = supervised.create_state(model_cfg_with_bn(c), make_lr_schedule(tc, n_steps),
+                                    seed=SEED)
+    step = supervised.make_sup_train_step(
+        make_loss(tc.criterion.name, nc, ignore_index=255, weight=tc.criterion.get("weight")),
+        num_classes=nc, forward_mode="plain", half=half)
+    dropout = supervised.sup_dropout(c, dev)
+
+    def obia_step(i):
+        l_img, target, _ = batches[i]
+        _, metrics, _ = step(state, to_input(l_img), target, None, dropout)
+        obia_step.metrics = metrics
+        return float(metrics["loss"])
+
+    vq_cuda.launches = 0
+    times, per_step, losses, peak = timed_steps(obia_step, REST_WARMUP, REST_TIMED, vq_cuda)
+    check(vq_cuda.launches == 0, f"fcn32s launched the kernel {vq_cuda.launches} times")
+    check(all(np.isfinite(losses)), f"fcn32s losses {losses}")
+    p50 = statistics.median(times)
+    print(f"[obia] {OBIA_CONFIG}: fcn32s ({c.model.params.encoder_name}), {hw}x{hw}, batch "
+          f"{tc.batch_size}, {'bf16 autocast' if half else 'f32'}, criterion {tc.criterion.name}: "
+          f"p50 {p50:.3f} ms/step ({tc.batch_size * 1e3 / p50:.1f} img/s) over {REST_TIMED} steps "
+          f"(min {min(times):.3f}, max {max(times):.3f}); peak memory {peak / 2**30:.2f} GiB; "
+          f"0 vq_assign launches; losses {[round(v, 5) for v in losses]} | {card}")
+    prof = profile_window(lambda i: obia_step(REST_WARMUP + REST_TIMED + i), 1, "step",
+                          "obia-profile", f"bf16 fcn32s step, batch {tc.batch_size}", card)
+    out["obia"] = {"p50": p50, "peak_gib": peak / 2**30, "launches": 0,
+                   "device_ms": prof["device_ms"] if prof else None}
+    del state, batches
+    torch.cuda.empty_cache()
+
+    # the sup driver on the OBIA tree, the test CLI's sweep and serving
+    c_run = copy.deepcopy(c)
+    c_run.train.update(data_dir=obia_root, save_dir=os.path.join(root, "runs_obia"),
+                       num_epochs=1)
+    c_run.test.update(data_dir=obia_root, save_dir=os.path.join(root, "test_obia"))
+    history = []
+    vq_cuda.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        supervised.train(c_run, history=history)
+    drv_s = time.perf_counter() - t0
+    check(any("FROM SCRATCH" in str(w.message) for w in caught),
+          "obia driver: the unresolved imagenet weights did not warn")
+    [h] = history
+    steps = (REST_LABELLED + REST_UNLABELLED) // tc.batch_size
+    check(h["step"] == steps and np.isfinite(h["loss"]) and 0.0 <= h["miou"] <= 1.0,
+          f"obia epoch {h}")
+    ck_dir = os.path.join(c_run.train.save_dir, f"{c.project_name}_sup_0", "ckpoints")
+    last = os.path.join(ck_dir, "last.ckpt")
+    check(set(ckpoints.load_full(last)) == {"model_1", "epoch"}, "obia last.ckpt keys")
+    c_run.test.update(weights=last)
+    best_path, best = test_cli.test(c_run)
+    check(0.0 <= best["test_miou"] <= 1.0, f"obia sweep {best_path} {best}")
+    pred = Predictor.from_checkpoint(c_run, last, batch_size=tc.batch_size)
+    imgs = np.random.default_rng(SEED + 13).integers(0, 256, (tc.batch_size, hw, hw, 3),
+                                                     dtype=np.uint8)
+    labels = pred(imgs)
+    check(labels.shape == imgs.shape[:3] and int(labels.max()) < nc, f"obia served {labels.shape}")
+    check(vq_cuda.launches == 0, f"the obia driver, sweep and serving launched {vq_cuda.launches}")
+    print(f"[obia-driver] train on the OBIA tree ({REST_LABELLED} targets + {n_obia} OBIA "
+          f"pseudo-targets): 1 epoch x {steps} steps in {drv_s:.1f} s, loss {h['loss']:.4f}; the "
+          f"test CLI on last.ckpt: test miou {best['test_miou']:.4f}; Predictor.from_checkpoint "
+          f"served a batch of {tc.batch_size}; 0 vq_assign launches | {card}")
+    del pred
+    torch.cuda.empty_cache()
+
+    # -- (b) unimatch at semiweednet.json's width ----------------------------------------------
+    c = cfg_of(SEMIWEED_CONFIG)
+    c.update(mode="unimatch", project_name="unimatch")
+    c.model.name = "unimatch"
+    hw, tc = int(c.resize), c.train
+    n_steps = REST_WARMUP + REST_TIMED
+    batches = batch_cache(SEED + 13)(hw, n_steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = unimatch_state(c, make_lr_schedule(tc, n_steps), dev)
+    raw = make_unimatch_train_step(num_classes=int(c.num_classes),
+                                   confidence_threshold=tc.get("confidence_threshold", 0.95))
+    draw = unimatch_draws(c, dev)
+    run_step = step_runner(lambda st, l, t, u: raw(st, l, t, u, *draw(u.shape[-2:])), state,
+                           batches)
+    vq_cuda.launches = 0
+    times, per_step, losses, peak = timed_steps(run_step, REST_WARMUP, REST_TIMED, vq_cuda)
+    check(vq_cuda.launches == 0, f"unimatch launched the kernel {vq_cuda.launches} times")
+    terms = {k: float(run_step.metrics[k]) for k in ("loss", "sup_loss", "loss_u_1", "loss_u_2",
+                                                      "loss_u_fp")}
+    check(all(np.isfinite(losses)) and all(np.isfinite(list(terms.values()))),
+          f"unimatch losses {losses} {terms}")
+    p50 = statistics.median(times)
+    print(f"[unimatch] {c.model.params.encoder_name}, output stride 16, {hw}x{hw}, batch "
+          f"{TRAIN_BATCH}+{TRAIN_BATCH}, f32: p50 {p50:.3f} ms/step over {REST_TIMED} steps (min "
+          f"{min(times):.3f}, max {max(times):.3f}); peak memory {peak / 2**30:.2f} GiB; 0 "
+          f"vq_assign launches; last step " + ", ".join(f"{k} {v:.5g}" for k, v in terms.items())
+          + f" | {card}")
+    prof = profile_window(lambda i: run_step(i), 1, "step", "unimatch-profile",
+                          "f32 unimatch step", card)
+    out["unimatch"] = {"p50": p50, "peak_gib": peak / 2**30, "launches": 0,
+                       "device_ms": prof["device_ms"] if prof else None}
+    del state
+    torch.cuda.empty_cache()
+    c_run = copy.deepcopy(c)
+    c_run.train.update(data_dir=root, save_dir=os.path.join(root, "runs_unimatch"),
+                       num_epochs=1, test_every=1)
+    c_run.test.update(data_dir=root, save_dir=os.path.join(root, "test_unimatch"))
+    history = []
+    vq_cuda.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        train_unimatch(c_run, history=history)
+    [h] = history
+    check(vq_cuda.launches == 0, f"train_unimatch launched the kernel {vq_cuda.launches} times")
+    check(np.isfinite(h["loss"]) and 0.0 <= h["test_miou"] <= 1.0, f"unimatch epoch {h}")
+    last = os.path.join(c_run.train.save_dir, "unimatch_unimatch_0", "ckpoints", "last.ckpt")
+    check(set(ckpoints.load_full(last)) == {"model_1", "epoch", "optimizer_1"},
+          "unimatch last.ckpt keys")
+    print(f"[unimatch-driver] train_unimatch: 1 epoch x {h['step']} steps on phase 7's tree in "
+          f"{time.perf_counter() - t0:.1f} s, loss {h['loss']:.4f}, test miou "
+          f"{h['test_miou']:.4f}; 0 vq_assign launches | {card}")
+    out["unimatch_driver"] = 0
+    torch.cuda.empty_cache()
+
+    # -- (c) salientcps at the flagship's width ------------------------------------------------
+    base = cfg_of("vqreptunet1x1v2")
+    c = copy.deepcopy(base)
+    c.update(mode="salientcps", project_name="salient")
+    p = base.model.params
+    c.model = type(c.model)({"name": "VQUnetwithSalientloss",
+                             "params": {k: p[k] for k in ("encoder_name", "num_classes",
+                                                          "vq_cfg")}})
+    c.train.update(salient_dir=sal_dir)
+    hw, tc = int(c.resize), c.train
+    per_fwd = sum(1 for k in p.vq_cfg.num_embeddings if k)
+    n_steps = REST_WARMUP + REST_TIMED + 1
+    batches = batch_cache(SEED + 14)(hw, n_steps + 1)
+    sal_rng = np.random.default_rng(SEED + 14)
+    sal_maps = [tuple(torch.from_numpy(sal_rng.random((b[0].shape[0], hw, hw), np.float32)).cuda()
+                      for _ in range(2)) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = create_cps_state(model_cfg_with_bn(c), make_lr_schedule(tc, n_steps), seed=SEED,
+                             encoder_weights=None)
+    vq_cuda.launches = 0
+    plain_init_phase(state, to_input(batches[0][0]), batches[0][1])
+    init_launches = vq_cuda.launches
+    check(init_launches == 2 * per_fwd, f"salientcps init launched {init_launches}, not 6")
+    post_init = copy.deepcopy(state)
+    raw = salient_step(c)
+
+    def salient_run(i):
+        l_img, target, ul_img = batches[i]
+        l_sal, ul_sal = sal_maps[i]
+        _, metrics = raw(state, to_input(l_img), target, l_sal, to_input(ul_img), ul_sal)
+        salient_run.metrics = metrics
+        return float(metrics["loss"])
+
+    vq_cuda.launches = 0
+    times, per_step, losses, peak = timed_steps(salient_run, REST_WARMUP, REST_TIMED, vq_cuda)
+    launches = vq_cuda.launches
+    check(all(n == 4 * per_fwd for n in per_step),
+          f"salientcps launches per step {per_step}, expected {4 * per_fwd}")
+    terms = {k: float(salient_run.metrics[k]) for k in SALIENT_TERMS}
+    check(all(np.isfinite(losses)) and all(np.isfinite(list(terms.values()))),
+          f"salientcps losses {losses} {terms}")
+    p50 = statistics.median(times)
+    print(f"[salientcps] VQUnetwithSalientloss ({p.encoder_name}, num_embeddings "
+          f"{list(p.vq_cfg.num_embeddings)}), {hw}x{hw}, batch {TRAIN_BATCH}+{TRAIN_BATCH}, f32: "
+          f"init {init_launches} vq_assign launches, then {launches} over {len(per_step)} steps "
+          f"({4 * per_fwd} per step); p50 {p50:.3f} ms/step over {REST_TIMED} steps (min "
+          f"{min(times):.3f}, max {max(times):.3f}); peak memory {peak / 2**30:.2f} GiB; last "
+          f"step " + ", ".join(f"{k} {v:.5g}" for k, v in terms.items()) + f" | {card}")
+    prof = profile_window(lambda i: salient_run(REST_WARMUP + REST_TIMED + i), 1, "step",
+                          "salientcps-profile", "f32 salientcps step", card)
+    kernel_cases("salientcps", lambda: _no_grad_train_pass(state.model_1,
+                                                           to_input(batches[1][0])), per_fwd)
+    del state
+    l_img, target, ul_img = batches[-1]
+    l_sal, ul_sal = sal_maps[-1]
+    run = lambda st: raw(st, to_input(l_img), target, l_sal, to_input(ul_img), ul_sal)[1]
+    loss_err, grad_err, worst, substituted = kernel_vs_plain_step(
+        run, post_init, vq_cuda, vq_assign_reference, vector_quantizer, SALIENT_TERMS)
+    print(f"[salientcps-e2e] f32 step from the post-init state, VQ on the kernel vs on the plain "
+          f"version: loss terms max relative difference {loss_err:.3e} (limit {SLICE_LOSS_TOL}), "
+          f"gradients max relative L2 {grad_err:.3e} at {worst} (limit {SLICE_GRAD_TOL}); "
+          f"near-tie rows given the kernel's code per VQ call: {substituted}")
+    check(len(substituted) == 4 * per_fwd, f"plain salientcps step made {len(substituted)} calls")
+    check(loss_err <= SLICE_LOSS_TOL, f"f32 salientcps loss terms differ by {loss_err}")
+    check(grad_err <= SLICE_GRAD_TOL, f"f32 salientcps gradient of {worst} differs by {grad_err}")
+    del post_init
+    torch.cuda.empty_cache()
+    out["salientcps"] = {"init_launches": init_launches, "launches": launches,
+                         "per_step": per_step, "p50": p50, "peak_gib": peak / 2**30,
+                         "device_ms": prof["device_ms"] if prof else None,
+                         "vq_ms": prof["vq_ms"] if prof else None,
+                         "loss_err": loss_err, "grad_err": grad_err}
+    c_run = copy.deepcopy(c)
+    c_run.train.update(data_dir=sal_root, save_dir=os.path.join(root, "runs_salient"),
+                       num_epochs=1)
+    history = []
+    vq_cuda.launches = 0
+    t0 = time.perf_counter()
+    train_salient_cps(c_run, history=history)
+    [h] = history
+    steps = -(-REST_UNLABELLED // TRAIN_BATCH)
+    expect = per_fwd * (2 + 4 * steps)
+    check(vq_cuda.launches == expect,
+          f"train_salient_cps launched the kernel {vq_cuda.launches} times, not {expect}")
+    check(np.isfinite(h["loss"]) and h["test_miou"] is None, f"salientcps epoch {h}")
+    ck_dir = os.path.join(c_run.train.save_dir, "salient_salientcps_0", "ckpoints")
+    check(sorted(os.listdir(ck_dir)) == ["0ep.ckpt", "last.ckpt"], "salientcps checkpoints")
+    check(set(ckpoints.load_full(os.path.join(ck_dir, "last.ckpt"))) == contract,
+          "salientcps last.ckpt keys")
+    print(f"[salientcps-driver] train_salient_cps: 1 epoch x {steps} steps on the {SALIENT_WH}"
+          f"x{SALIENT_WH} tree with get_saliency_rbd maps in {time.perf_counter() - t0:.1f} s, "
+          f"{vq_cuda.launches} vq_assign launches ({2 * per_fwd} init + {4 * per_fwd} per "
+          f"step), loss {h['loss']:.4f}, salient_loss {h['salient_loss']:.4f} | {card}")
+    out["salientcps_driver"] = vq_cuda.launches
+    torch.cuda.empty_cache()
+
+    # -- (d) one step of each of the other new networks ----------------------------------------
+    flagship = cfg_of("vqreptunet1x1v2")
+    zoo = {}
+    for name, size in (("vqunet_v1", int(flagship.resize)),
+                       ("unetoriginal", int(cfg_of("CWFID_Unet").resize))):
+        c = copy.deepcopy(flagship)
+        params = ({"encoder_name": p.encoder_name, "num_classes": int(c.num_classes),
+                   "vq_cfg": p.vq_cfg} if name == "vqunet_v1"
+                  else {"num_classes": int(c.num_classes)})
+        c.model = type(c.model)({"name": name, "params": params})
+        expect = 1 if name == "vqunet_v1" else 0
+        batches = train_batches(np.random.default_rng(SEED + 15), 2, size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = supervised.create_state(model_cfg_with_bn(c), make_lr_schedule(c.train, 1),
+                                        seed=SEED)
+        step = supervised.make_sup_train_step(make_loss("dice_loss", int(c.num_classes),
+                                                        ignore_index=255),
+                                              num_classes=int(c.num_classes),
+                                              forward_mode="plain", half=True)
+        vq_cuda.launches = 0
+        supervised.init_phase(state, (to_input(batches[0][0]),), seed=SEED, half=True)
+        init_launches = vq_cuda.launches
+        vq_cuda.launches = 0
+        t0 = time.perf_counter()
+        _, metrics, _ = step(state, to_input(batches[1][0]), batches[1][1], None)
+        loss = float(metrics["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        step_launches = vq_cuda.launches
+        check(init_launches == expect and step_launches == expect and np.isfinite(loss),
+              f"{name}: init {init_launches}, step {step_launches} launches, loss {loss}")
+        zoo[name] = {"init": init_launches, "step": step_launches, "ms": ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if name == "vqunet_v1":
+            kernel_cases("vqunet_v1", lambda: _no_grad_train_pass(state.model,
+                                                                  to_input(batches[1][0])), 1)
+        print(f"[zoo-rest] {name} ({params.get('encoder_name', 'textbook U-Net')}), {size}x{size}, "
+              f"batch {TRAIN_BATCH}, bf16, sup: init {init_launches} + step {step_launches} "
+              f"vq_assign launches ({expect} per forward); first step {ms:.1f} ms, loss "
+              f"{loss:.5f}; peak memory {zoo[name]['peak_gib']:.2f} GiB | {card}")
+        del state, batches
+        torch.cuda.empty_cache()
+    hw, tc = int(flagship.resize), flagship.train
+    th, half = float(tc.confidence_threshold), bool(tc.half)
+    batches = train_batches(np.random.default_rng(SEED + 16), 2, hw)
+    for name in ("nopt", "scheme6"):
+        c = copy.deepcopy(flagship)
+        c.model.name = name
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_cps_state(c.model, make_lr_schedule(tc, 1), seed=SEED, encoder_weights=None)
+        dice = make_loss(tc.criterion.name, int(c.num_classes), ignore_index=255,
+                         weight=tc.criterion.get("weight"))
+        step = make_cps_train_step(dice, num_classes=int(c.num_classes), confidence_threshold=th,
+                                   cps_loss_weight=tc.cps_loss_weight,
+                                   commitment_loss_weight=tc.total_commitment_loss_weight,
+                                   prototype_loss_weight=tc.total_prototype_loss_weight,
+                                   ce_weight=tc.criterion.get("weight"), half=half)
+        vq_cuda.launches = 0
+        cps_init_phase(state, to_input(batches[0][0]), batches[0][1], th, seed=SEED, half=half)
+        init_launches = vq_cuda.launches
+        vq_cuda.launches = 0
+        t0 = time.perf_counter()
+        _, metrics, _, _ = step(state, to_input(batches[1][0]), batches[1][1],
+                                to_input(batches[1][2]))
+        loss, proto = float(metrics["loss"]), float(metrics["prototype_loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        check(init_launches == 6 and vq_cuda.launches == VQ_PER_STEP and np.isfinite(loss),
+              f"{name}: init {init_launches}, step {vq_cuda.launches} launches, loss {loss}")
+        check((proto == 0.0) == (name == "nopt"), f"{name}: prototype loss {proto}")
+        zoo[name] = {"init": init_launches, "step": vq_cuda.launches, "ms": ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"[zoo-rest] {name} (the flagship's config, {p.encoder_name}, {hw}x{hw}, batch "
+              f"{TRAIN_BATCH}+{TRAIN_BATCH}, {'bf16' if half else 'f32'}, cps): init "
+              f"{init_launches} + step {vq_cuda.launches} vq_assign launches; first step "
+              f"{ms:.1f} ms, loss {loss:.5f}, prototype_loss {proto:.5g}; peak memory "
+              f"{zoo[name]['peak_gib']:.2f} GiB | {card}")
+        del state
+        torch.cuda.empty_cache()
+    out["zoo"] = zoo
+    return out
+
+
+def _no_grad_train_pass(model, x):
+    """One train-mode forward of ``model`` on ``x`` without gradients, on a
+    copy (the running statistics of ``model`` stay)."""
+    probe = copy.deepcopy(model).train()
+    with torch.no_grad():
+        probe(x, train=True)
+
+
 def main() -> int:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2279,12 +2751,16 @@ def main() -> int:
             t_slice = time.perf_counter()
             slice12 = slice_phase(card, vq_cuda, vq_assign_reference, vector_quantizer, root)
             print(f"[slice] phase 12 in {time.perf_counter() - t_slice:.1f} s | {card}")
+            # -- 13. obia_CWFID.json, unimatch, salientcps and the rest of the registry
+            t_rest = time.perf_counter()
+            rest = rest_phase(card, vq_cuda, vq_assign_reference, vector_quantizer, root)
+            print(f"[zoo-rest] phase 13 in {time.perf_counter() - t_rest:.1f} s | {card}")
         finally:
             torch.backends.cudnn.allow_tf32 = False
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # -- 13. result lines -----------------------------------------------------------
+    # -- 14. result lines -----------------------------------------------------------
     main_path = results[:len(captured)]  # the three shapes the serving forward gave
     shape_keys = ("case", "n", "c", "k", "ms", "plain_ms", "bound_ms", "f32_simt_bound_ms",
                   "near_ties", "max_abs_err")
@@ -2296,7 +2772,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in results + train["cases"] + driver["cases"]
                            + [c for name, _ in SUP_CONFIGS for c in sup[name]["cases"]]
-                           + plain["cases"]),
+                           + plain["cases"] + rest["cases"]),
         # per forward: the three main-path shapes summed
         "ms": sum(r["ms"] for r in main_path),
         "plain_ms": sum(r["plain_ms"] for r in main_path),
@@ -2394,6 +2870,24 @@ def main() -> int:
             ANGULAR_CONFIG, SUPCON_CONFIG, SEMIWEED_CONFIG, SELFSUP_CONFIG)},
         "slice_step_device_ms_per_step": {n: slice12[n]["device_ms"] for n in (
             ANGULAR_CONFIG, SUPCON_CONFIG, SEMIWEED_CONFIG, SELFSUP_CONFIG)},
+        # phase 13: fcn32s (obia_CWFID.json, bf16), unimatch (f32) and
+        # their drivers launch nothing; salientcps (f32): init, the warm-up
+        # and timed steps, its driver epoch and the device time of one
+        # profiled step; one step of vqunet_v1 and unetoriginal (sup, bf16)
+        # and of nopt and scheme6 (cps, the flagship's config); the kernel
+        # at salientcps's and vqunet_v1's shapes
+        "launches_rest": {
+            "obia_steps": rest["obia"]["launches"], "unimatch_steps": rest["unimatch"]["launches"],
+            "unimatch_driver": rest["unimatch_driver"],
+            "salientcps_init": rest["salientcps"]["init_launches"],
+            "salientcps_steps": rest["salientcps"]["launches"],
+            "salientcps_per_step": rest["salientcps"]["per_step"],
+            "salientcps_driver": rest["salientcps_driver"],
+            **{f"{n}_{k}": v[k] for n, v in rest["zoo"].items() for k in ("init", "step")}},
+        "rest_step_device_ms": {k: rest[k]["device_ms"] for k in ("obia", "unimatch",
+                                                                 "salientcps")},
+        "rest_vq_device_ms_per_step": rest["salientcps"]["vq_ms"],
+        "rest_shapes": [{key: r[key] for key in shape_keys} for r in rest["cases"]],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

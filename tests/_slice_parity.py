@@ -49,6 +49,47 @@ def drv_cfg(data_dir, save_dir, name, **train):
     return cfg
 
 
+def unimatch_cfg(data_dir, save_dir, **train):
+    """``config/semiweednet.json`` (its encoder, resize and batch) cut as
+    ``drv_cfg`` cuts it, with the ``unimatch`` network and mode (no shipped
+    config has them) and plain CE."""
+    cfg = drv_cfg(data_dir, save_dir, "semiweednet", **train)
+    cfg.update(mode="unimatch", project_name="unimatch")
+    cfg["model"]["name"] = "unimatch"
+    cfg["train"]["criterion"] = {"name": "cross_entropy"}
+    return cfg
+
+
+def salient_cfg(data_dir, save_dir, salient_dir, **train):
+    """``config/vqreptunet1x1v2.json`` (its encoder and ``vq_cfg``) cut as
+    ``drv_cfg`` cuts it, with ``VQUnetwithSalientloss`` and the
+    ``salientcps`` mode (no shipped config has them) reading the maps of
+    ``salient_dir``."""
+    cfg = drv_cfg(data_dir, save_dir, "vqreptunet1x1v2", salient_dir=salient_dir, **train)
+    cfg.update(mode="salientcps", project_name="salient")
+    p = cfg["model"]["params"]
+    cfg["model"] = {"name": "VQUnetwithSalientloss",
+                    "params": {k: p[k] for k in ("encoder_name", "num_classes", "vq_cfg")}}
+    return cfg
+
+
+def write_saliency(data_dir, out_dir):
+    """The port's ``get_saliency_rbd`` map of every train and test input of
+    ``data_dir`` as a gray PNG in ``out_dir`` (by file name)."""
+    from PIL import Image
+
+    from vq_seg_tpu_torch.tools.saliency import get_saliency_rbd
+
+    os.makedirs(out_dir, exist_ok=True)
+    for split in ("train", "test"):
+        folder = os.path.join(data_dir, split, "input")
+        for fn in sorted(os.listdir(folder)):
+            img = np.asarray(Image.open(os.path.join(folder, fn)).convert("RGB")) / 255.0
+            sal = np.round(get_saliency_rbd(img, n_segments=16) * 255).astype(np.uint8)
+            Image.fromarray(sal, mode="L").save(os.path.join(out_dir, fn))
+    return out_dir
+
+
 class JitModel:
     """A flax model whose ``init`` and init-phase ``apply`` (a call with
     ``init_codebook``) each run as one compiled program (op by op, flax

@@ -298,12 +298,13 @@ def _torchvision_convnext_state(depths, dims, rng):
 
 
 def test_vgg_or_convnext_files_raise(tmp_path):
-    """A VGG file raises, a file short of encoder keys raises, and a
-    torchvision ConvNeXt file loads, onto the same values as the JAX
-    package's ``convert_convnext`` gives."""
+    """A VGG file for a ResNet encoder raises (VGG files load into the VGG
+    encoders, ``tests/test_torch_fcn.py``), a file short of encoder keys
+    raises, and a torchvision ConvNeXt file loads, onto the same values as
+    the JAX package's ``convert_convnext`` gives."""
     torch.save({"features.0.weight": torch.zeros(64, 3, 3, 3)}, str(tmp_path / "vgg.pth"))
     enc, _ = make_encoder("resnet18", 3, 5)
-    with pytest.raises(NotImplementedError, match="VGG.*ROADMAP"):
+    with pytest.raises(ValueError, match="lacks"):
         load_encoder_weights(enc, str(tmp_path / "vgg.pth"))
     torch.save({"conv1.weight": torch.zeros(64, 3, 7, 7)}, str(tmp_path / "partial.pth"))
     with pytest.raises(ValueError, match="lacks"):

@@ -24,7 +24,8 @@ Port-only: resume ("auto" continues at the saved epoch + 1 with models and
 optimizers restored bitwise and the LR at ``schedule(step)``), preemption
 (a full-contract ``last.ckpt``, then a stop), ``evaluate`` against JAX's
 ``evaluate`` on mapped weights (1e-6), the test CLI's sweep, the train CLI
-in a subprocess, and what is not ported raising.
+in a subprocess, and what is not ported (the test CLI's ``--crf``)
+raising.
 """
 import json
 import os
@@ -353,14 +354,12 @@ def test_unported_knobs_raise(synthetic_dataset, tmp_path, knob, value):
 
 
 def test_unported_modes_and_options_raise(synthetic_dataset, tmp_path):
+    """Every mode trains now (``tests/test_torch_slice_cli.py`` runs the
+    last two); the test CLI's ``--crf`` is not ported."""
     cfg = _cfg(synthetic_dataset, str(tmp_path / "runs"))
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_cli.main(["--config_path", str(path), "--mode", "unimatch", "--device", "cpu"])
-    path.write_text(json.dumps({**cfg, "mode": "salientcps"}))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_cli.main(["--config_path", str(path), "--device", "cpu"])
+    assert set(train_cli.PORTED) == set(train_cli.MODES)
     with pytest.raises(NotImplementedError, match="item 13"):
         test_cli.main(["--config_path", str(path), "--crf", "--device", "cpu"])
     if not torch.cuda.is_available():  # every entry point defaults to the card

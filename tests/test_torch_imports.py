@@ -42,7 +42,9 @@ def test_imports_with_jax_blocked():
                      "models.networks.vqseghead", "data.augmentations", "losses.focal",
                      "models.networks.deeplabv3", "models.networks.semiweednet",
                      "models.networks.vqvae", "losses.contrastive", "losses.dc",
-                     "training.selfsup", "train", "test"):
+                     "training.selfsup", "train", "test", "models.encoders.vgg",
+                     "models.networks.fcn", "models.networks.ablation", "tools.slic",
+                     "tools.obia", "tools.forest", "tools.saliency"):
             assert "vq_seg_tpu_torch." + name in sys.modules, name
         from vq_seg_tpu_torch.data import fastimg
         assert fastimg._lib is None and not fastimg._tried, "importing must not build the decoder"

@@ -152,7 +152,12 @@ def test_resnet18_encoder_stages_match_jax():
 
 
 def test_make_encoder_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_encoder("vgg16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every name of the JAX ``make_encoder`` is ported (VGG since the last
+    slice, ``tests/test_torch_fcn.py``); a name it refuses, the port refuses
+    too."""
+    enc, ch = make_encoder("vgg16")
+    assert tuple(ch) == (64, 128, 256, 512, 512, 512)
+    with pytest.raises(KeyError):
+        jax_make_encoder("resnext50_32x4d")
+    with pytest.raises(KeyError):
         make_encoder("resnext50_32x4d")

@@ -8,9 +8,13 @@ entry points on the CPU (helpers in ``_slice_parity.py``):
   * the users' flow: ``--mode selfsup`` writes the VQ-VAE's files, and a
     ``vqpt`` run with ``train.pretrained`` naming them loads its encoder
     bitwise and keeps it frozen;
-  * ``unimatch`` and ``salientcps`` raise ``NotImplementedError`` naming
-    ROADMAP.md's item; without ``device="cpu"`` the new drivers raise on a
-    machine without a card, before they write anything.
+  * ``unimatch`` and ``salientcps`` (no shipped config: ``semiweednet.json``
+    and ``vqreptunet1x1v2.json`` with the network swapped) train one CPU
+    epoch through the train CLI and write their ``last.ckpt``; without
+    ``device="cpu"`` the drivers of this slice and of the last one
+    (``unimatch``, ``salientcps``, ``sup`` on ``obia_CWFID.json``, ``cps``
+    of ``nopt``) raise on a machine without a card, before they write
+    anything.
 """
 import copy
 import json
@@ -21,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _slice_parity import HW, drv_cfg
+from _slice_parity import HW, drv_cfg, salient_cfg, unimatch_cfg, write_saliency
 from vq_seg_tpu_torch import test as test_cli
 from vq_seg_tpu_torch import train as train_cli
 from vq_seg_tpu_torch import training
@@ -88,22 +92,56 @@ def test_selfsup_files_pretrain_a_vqpt_run(synthetic_dataset, tmp_path, capsys):
     shutil.rmtree(tmp_path / "vqpt")
 
 
+def _cfg(name, data_dir, save_dir, tmp_path, **train):
+    """A tiny config by shipped name, or ``unimatch``/``salientcps`` (with
+    saliency maps written under ``tmp_path``), ``obia_CWFID`` (fcn32s on
+    vgg11) or ``nopt`` (the flagship's config with the name swapped)."""
+    if name == "unimatch":
+        return unimatch_cfg(data_dir, save_dir, **train)
+    if name == "salientcps":
+        return salient_cfg(data_dir, save_dir, str(tmp_path / "salient"), **train)
+    if name == "nopt":
+        cfg = drv_cfg(data_dir, save_dir, "vqreptunet1x1v2", **train)
+        cfg["model"]["name"] = "nopt"
+        return cfg
+    cfg = drv_cfg(data_dir, save_dir, name, **train)
+    if name == "obia_CWFID":
+        cfg["model"]["params"]["encoder_name"] = "vgg11"
+    return cfg
+
+
 @pytest.mark.parametrize("mode", ["unimatch", "salientcps"])
-def test_unported_modes_raise(mode, tmp_path):
-    cfg = drv_cfg("", str(tmp_path / "runs"), "vqreptunetangularv3")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(["--config_path", _write(cfg, tmp_path), "--mode", mode,
-                        "--device", "cpu"])
+def test_unported_modes_raise(mode, synthetic_dataset, tmp_path, capsys):
+    """(Once pinned that the two modes raise.)  Each mode trains one CPU
+    epoch through the train CLI, as a user runs it, and writes its
+    ``last.ckpt``."""
+    if mode == "salientcps":
+        write_saliency(synthetic_dataset, str(tmp_path / "salient"))
+    cfg = _cfg(mode, synthetic_dataset, str(tmp_path / "runs"), tmp_path)
+    cfg["wandb_logging"] = False
+    train_cli.main(["--config_path", _write(cfg, tmp_path), "--mode", mode,
+                    "--max_steps_per_epoch", "1", "--device", "cpu"])
+    assert f"[{mode}][Epoch0] " in capsys.readouterr().out
+    [run] = os.listdir(tmp_path / "runs")
+    assert run == f"{cfg['project_name']}_{mode}_0"
+    last = str(tmp_path / "runs" / run / "ckpoints" / "last.ckpt")
+    keys = {"model_1", "epoch", "optimizer_1"} if mode == "unimatch" else DUAL
+    assert set(ckpoints.load_full(last)) == keys
+    shutil.rmtree(tmp_path / "runs")
 
 
 @pytest.mark.parametrize("driver,name", [("train_angularv3_cps", "vqreptunetangularv3"),
                                          ("train_supcon_cps", "sup_con_loss"),
                                          ("train_semiweed", "semiweednet"),
-                                         ("train_selfsup", "vqvaev2_selfsup")])
+                                         ("train_selfsup", "vqvaev2_selfsup"),
+                                         ("train_unimatch", "unimatch"),
+                                         ("train_salient_cps", "salientcps"),
+                                         ("train_sup", "obia_CWFID"),
+                                         ("train", "nopt")])
 def test_entry_points_need_the_card(driver, name, synthetic_dataset, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
-    cfg = drv_cfg(synthetic_dataset, str(tmp_path / "runs"), name)
+    cfg = _cfg(name, synthetic_dataset, str(tmp_path / "runs"), tmp_path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         getattr(training, driver)(Config(copy.deepcopy(cfg)))
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -55,7 +55,7 @@ from _seeded_flax import seeded_variables
 from vq_seg_tpu_torch import test as test_cli
 from vq_seg_tpu_torch import train as train_cli
 from vq_seg_tpu_torch.config import Config
-from vq_seg_tpu_torch.data import NormalizedDataset
+from vq_seg_tpu_torch.data import NormalizedDataset, OBIADataset
 from vq_seg_tpu_torch.losses import make_loss
 from vq_seg_tpu_torch.models.networks import make_model
 from vq_seg_tpu_torch.ops.kmeans import kmeans_step, sample_vectors
@@ -365,9 +365,25 @@ def test_normalized_and_obia_datasets(synthetic_dataset, tmp_path):
     history = []
     supervised.train(Config(cfg), max_steps_per_epoch=1, device="cpu", history=history)
     assert len(history) == 1 and np.isfinite(history[0]["loss"])
-    obia = json.load(open(os.path.join(ROOT, "config", "obia_CWFID.json")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        supervised.train(Config(obia), device="cpu")
+    # "obia" mixes the OBIA pseudo-targets of train/obia/ with the targets
+    # (fcn32s on obia_CWFID.json itself: tests/test_torch_fcn.py)
+    root = tmp_path / "obia_tree"
+    shutil.copytree(synthetic_dataset, root)
+    train_dir = root / "train"
+    unlabelled = sorted(set(os.listdir(train_dir / "input"))
+                        - set(os.listdir(train_dir / "target")))
+    (train_dir / "obia").mkdir()
+    for name in unlabelled:
+        shutil.copy(train_dir / "target" / sorted(os.listdir(train_dir / "target"))[0],
+                    train_dir / "obia" / name)
+    cfg = _drv_cfg("CWFID_Unet", str(root), str(tmp_path / "runs_obia"), dataset="obia")
+    cfg["wandb_logging"] = False
+    history = []
+    supervised.train(Config(cfg), max_steps_per_epoch=1, device="cpu", history=history)
+    assert len(history) == 1 and np.isfinite(history[0]["loss"])
+    ds = OBIADataset(str(train_dir), batch_size=2, resize=HW)
+    n = len(os.listdir(train_dir / "target")) + len(unlabelled)
+    assert len(ds) == n + n % 2 and os.path.basename(os.path.dirname(ds.target_files[0])) == "obia"
 
 
 def test_sup_entry_points_need_the_card(synthetic_dataset, tmp_path):

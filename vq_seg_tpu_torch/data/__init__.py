@@ -1,4 +1,6 @@
 """Datasets and the batch loader."""
-from .dataset import BaseDataset, FolderDataset, Loader, NormalizedDataset
+from .dataset import (BaseDataset, FolderDataset, Loader, NormalizedDataset, OBIADataset,
+                      SalientDataset)
 
-__all__ = ["BaseDataset", "FolderDataset", "Loader", "NormalizedDataset"]
+__all__ = ["BaseDataset", "FolderDataset", "Loader", "NormalizedDataset", "OBIADataset",
+           "SalientDataset"]

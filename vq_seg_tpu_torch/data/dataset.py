@@ -1,6 +1,6 @@
 """Datasets and the batch loader, counterpart of the JAX package's
 ``data/dataset.py`` (``BaseDataset``, ``NormalizedDataset``,
-``FolderDataset``, ``Loader``).
+``FolderDataset``, ``SalientDataset``, ``OBIADataset``, ``Loader``).
 
 Items are host numpy, as in the JAX package: ``img`` HWC float32 in [0, 1]
 (torchvision ``to_tensor`` values) and ``target`` the raw uint8 mask
@@ -48,6 +48,15 @@ def _norm_resize(resize):
     if resize is None:
         return None
     raise ValueError(f"It's invalid type of resize {type(resize)}")
+
+
+def _pad_to_batch(files: list, batch_size: Optional[int]) -> list:
+    """``files`` tiled up to a multiple of ``batch_size`` (a single wrap
+    would leave the list short when the pad exceeds the file count)."""
+    if batch_size is None or len(files) % batch_size == 0:
+        return files
+    pad = batch_size - len(files) % batch_size
+    return files + (files * -(-pad // len(files)))[:pad]
 
 
 def _load_pair_pil(img_path, target_path, resize, target_resize):
@@ -98,12 +107,7 @@ class BaseDataset:
             self.target_dir = None
         else:
             raise ValueError("split has to be labelled or unlabelled")
-        if batch_size is not None and len(self.filenames) % batch_size != 0:
-            # tile: a single wrap would leave the list non-divisible when
-            # the pad exceeds the file count
-            pad = batch_size - len(self.filenames) % batch_size
-            reps = -(-pad // len(self.filenames))
-            self.filenames = self.filenames + (self.filenames * reps)[:pad]
+        self.filenames = _pad_to_batch(self.filenames, batch_size)
 
     def __len__(self):
         return len(self.filenames)
@@ -152,6 +156,57 @@ class FolderDataset:
     def __getitem__(self, index):
         img, _ = _load_pair(self.images[index], None, self.resize, False)
         return {"filename": os.path.basename(self.images[index]), "img": img}
+
+
+class SalientDataset(BaseDataset):
+    """``BaseDataset`` items with ``salient_map``: the gray PNG
+    ``{salient_dir}/{filename}`` NEAREST-resized to ``resize``, as float32
+    in [0, 1] (reference data/dataset.py:80-127)."""
+
+    def __init__(self, data_dir: str, salient_dir: str, split: str, resize=None,
+                 target_resize: bool = True):
+        super().__init__(data_dir, split, None, resize, target_resize)
+        self.salient_dir = salient_dir
+
+    def __getitem__(self, index):
+        out = super().__getitem__(index)
+        path = os.path.join(self.salient_dir, out["filename"])
+        sal = fastimg.load_gray_u8(path, self.resize)
+        if sal is None:
+            from PIL import Image
+
+            im = Image.open(path).convert("L")
+            if self.resize is not None:
+                im = im.resize(self.resize, resample=Image.NEAREST)
+            sal = np.asarray(im, dtype=np.uint8)
+        out["salient_map"] = sal.astype(np.float32) / 255.0
+        return out
+
+
+class OBIADataset:
+    """True targets mixed with OBIA pseudo-targets (reference
+    data/dataset.py:130-165): ``target/*.png`` and ``obia/*.png`` sorted
+    into one list by full path (so ``obia/`` comes first), padded to a
+    multiple of ``batch_size`` by repetition; each item's input is
+    ``input/{filename}``.  Items ``{filename, img, target}``."""
+
+    def __init__(self, data_dir: str, batch_size: Optional[int] = None, resize=None,
+                 target_resize: bool = True):
+        self.resize = _norm_resize(resize)
+        self.img_dir = os.path.join(data_dir, "input")
+        self.target_resize = target_resize
+        self.target_files = _pad_to_batch(
+            sorted(glob(os.path.join(data_dir, "target", "*.png"))
+                   + glob(os.path.join(data_dir, "obia", "*.png"))), batch_size)
+
+    def __len__(self):
+        return len(self.target_files)
+
+    def __getitem__(self, index):
+        filename = os.path.basename(self.target_files[index])
+        img, tgt = _load_pair(os.path.join(self.img_dir, filename), self.target_files[index],
+                              self.resize, self.target_resize)
+        return {"filename": filename, "img": img, "target": tgt}
 
 
 class Loader:

@@ -1,7 +1,7 @@
 """Encoder factory: ``resnet*``, ``cca``-prefixed resnets (per-stage CCA),
-``ccavq``-prefixed resnets (per-stage CCA and in-encoder codebooks) and
-``convnext_*``; VGG is in ROADMAP.md, queue 1, "The rest of the model
-zoo"."""
+``ccavq``-prefixed resnets (per-stage CCA and in-encoder codebooks),
+``vgg*`` (``vgg11`` ... ``vgg19_bn``) and ``convnext_*``: every name of the
+JAX package's ``make_encoder``."""
 from __future__ import annotations
 
 import re
@@ -11,6 +11,7 @@ import torch
 
 from .convnext import ConvNeXtEncoder, convnext_encoders
 from .resnet import CCAVQResNetEncoder, ResNetEncoder, resnet_encoders
+from .vgg import VGGEncoder, vgg_encoders
 
 _CCAVQ_DEFAULT = {"num_embeddings": [0, 0, 512, 512, 512], "distance": "euclidean",
                   "kmeans_init": True}
@@ -52,12 +53,16 @@ def make_encoder(name: str, in_channels: int = 3, depth: int = 5,
                                 generator=generator, cca=cca, custom_stem=custom_stem,
                                 output_stride=output_stride)
             return enc, enc.encoder_channels()
+    if name in vgg_encoders:
+        p = vgg_encoders[name]
+        enc = VGGEncoder(p["out_channels"], p["config"], p["batch_norm"], depth=depth,
+                         in_channels=in_channels, generator=generator)
+        return enc, enc.encoder_channels()
     if name in convnext_encoders:
         p = convnext_encoders[name]
         enc = ConvNeXtEncoder(p["depths"], p["dims"], depth=min(depth, 4),
                               in_channels=in_channels, generator=generator)
         return enc, enc.encoder_channels()
-    raise NotImplementedError(
-        f"encoder {name!r} is not ported yet: the port has {sorted(resnet_encoders)} (also "
-        f"with a cca or ccavq prefix) and {sorted(convnext_encoders)}; vgg is in ROADMAP.md, "
-        "queue 1, 'The rest of the model zoo'")
+    raise KeyError(f"unknown encoder {name!r}: the port has {sorted(resnet_encoders)} (also "
+                   f"with a cca or ccavq prefix), {sorted(vgg_encoders)} and "
+                   f"{sorted(convnext_encoders)}")

@@ -112,19 +112,20 @@ def batch_norm(channels: int, eps: float = 1e-5, momentum: float = 0.1) -> Batch
 
 
 class ConvBNReLU(nn.Module):
-    """conv (no bias) -> BN -> activation.  ``padding`` defaults to
-    (k - 1) // 2, the 'same' idiom; ``groups``, ``dilation`` and
-    ``padding_mode`` are the conv's; ``act`` is applied last (None for
+    """conv -> BN -> activation.  ``padding`` defaults to (k - 1) // 2, the
+    'same' idiom; ``groups``, ``dilation``, ``padding_mode`` and ``bias``
+    (default none) are the conv's; ``act`` is applied last (None for
     none)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  bn_eps: float = 1e-5, bn_momentum: float = 0.1,
                  generator: Optional[torch.Generator] = None, *, padding: Optional[int] = None,
-                 groups: int = 1, dilation: int = 1, padding_mode: str = "zeros", act=F.relu):
+                 groups: int = 1, dilation: int = 1, padding_mode: str = "zeros", act=F.relu,
+                 bias: bool = False):
         super().__init__()
         pad = (kernel_size - 1) // 2 if padding is None else padding
         self.conv = ConvPad(in_channels, out_channels, kernel_size, 1, pad, groups=groups,
-                            bias=False, padding_mode=padding_mode, generator=generator,
+                            bias=bias, padding_mode=padding_mode, generator=generator,
                             dilation=dilation)
         self.bn = batch_norm(out_channels, bn_eps, bn_momentum)
         self.act = act

@@ -37,7 +37,7 @@ class UnetDecoder(nn.Module):
         if subpixel_tail:
             raise NotImplementedError(
                 "the decoder's subpixel_tail is not ported yet "
-                "(ROADMAP.md, queue 1, 'The rest of the model zoo')")
+                "(ROADMAP.md, queue 1, item 17)")
         self.cca = tuple(bool(f) for f in cca) if cca is not None else None
         skips = list(encoder_channels[1:])[::-1]  # deep -> shallow
         blocks = []

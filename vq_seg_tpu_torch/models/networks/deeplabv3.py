@@ -1,5 +1,5 @@
-"""DeepLab v3 and v3+, counterpart of the JAX package's
-``models/networks/deeplabv3.py`` (its ``UniMatch`` is in ROADMAP.md, queue 1).
+"""DeepLab v3 and v3+ and UniMatch's network, counterpart of the JAX
+package's ``models/networks/deeplabv3.py``.
 
   * ``SeparableConvBNReLU``: a depthwise k x k conv (dilated) and a
     pointwise 1x1 conv, both bias-free, then BN and ReLU;
@@ -171,3 +171,26 @@ class DeepLabV3Plus(nn.Module):
 
     def forward(self, x, train: bool = False, dropout=None):
         return self._logits(x, self.encoder(x), train, dropout), None
+
+
+@register("unimatch")
+class UniMatch(DeepLabV3Plus):
+    """``deeplabv3plus`` with UniMatch's feature-perturbation forward.
+    ``forward(x, need_fp=False, train=False, dropout=None, fp_dropout=None)``
+    -> (logits, None), or with ``need_fp`` (logits, perturbed logits): the
+    stride-2 feature ``feats[1]`` and the deepest ``feats[-1]`` go through
+    dropout 0.5 (``fp_dropout``: None or a callable ``shape -> keep``,
+    called for ``feats[1]`` and then ``feats[-1]``), and the clean and
+    perturbed feature lists are concatenated along the batch before the
+    decoder, so its BNs and its ASPP dropout (``dropout``) see 2N rows."""
+
+    def forward(self, x, need_fp: bool = False, train: bool = False, dropout=None,
+                fp_dropout=None):
+        feats = self.encoder(x)
+        if not need_fp:
+            return self._logits(x, feats, train, dropout), None
+        fp = list(feats)
+        fp[1] = apply_dropout(feats[1], 0.5, fp_dropout) if train else feats[1]
+        fp[-1] = apply_dropout(feats[-1], 0.5, fp_dropout) if train else feats[-1]
+        out = self._logits(x, [torch.cat([a, b]) for a, b in zip(feats, fp)], train, dropout)
+        return out[: x.shape[0]], out[x.shape[0]:]

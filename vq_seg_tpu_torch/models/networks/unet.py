@@ -1,9 +1,8 @@
 """U-Nets of the JAX package's ``models/networks/unet.py``: the supervised
-baseline ``Unet``, the angular-head networks ``VQASHUnet``,
-``VQASHUnetv2``, ``VQRePTUnetAngular`` and ``VQRePTUnetAngularv3``, and
-``SupConVQUnet`` with its pixel supervised-contrastive loss.  The saliency
-and textbook U-Nets of that module are in ROADMAP.md, queue 1, "The rest of
-the model zoo".
+baseline ``Unet``, the textbook ``UnetOriginal``, the angular-head
+networks ``VQASHUnet``, ``VQASHUnetv2``, ``VQRePTUnetAngular`` and
+``VQRePTUnetAngularv3``, ``VQUnetwithSalientloss`` with its saliency
+decoder, and ``SupConVQUnet`` with its pixel supervised-contrastive loss.
 
 ``Unet``: a ``VQUnetCore`` with no VQ and a zero-padded encoder, a 3x3 head
 with bias, then the x2 align-corners upsample; the forward returns bare
@@ -15,13 +14,16 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ...losses.contrastive import supcon_loss
-from ..layers import ConvPad, torch_conv_default, upsample_bilinear_ac
+from ..layers import ConvBNReLU, ConvPad, resize_bilinear, torch_conv_default
+from ..layers import upsample_bilinear_ac
 from ..modules.heads import (AngularSegmentationHead, AngularSegmentationHeadv2,
                              AngularSegmentationHeadv3)
 from . import register
 from .vq_unet import VQUnetCore, _head_out, _vq_head, self_entropy
+from .vqvae import _conv_transpose
 
 
 @register("unet")
@@ -48,6 +50,109 @@ class Unet(nn.Module):
         if self.upsampling > 1:
             out = upsample_bilinear_ac(out, scale=self.upsampling)
         return out
+
+
+class DBConv(nn.Sequential):
+    """Two VALID 3x3 ``ConvBNReLU``s whose convs have a bias."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(*(ConvBNReLU(c, out_channels, 3, generator=generator, padding=0,
+                                      bias=True) for c in (in_channels, out_channels)))
+
+
+@register("unetoriginal")
+class UnetOriginal(nn.Module):
+    """The textbook 2015 U-Net: the input reflect-padded by 4 (and up to a
+    multiple of 4 at the bottom and right), four ``DBConv`` + 2x2 max-pool
+    contractions from ``first_outchannels``, a ``DBConv`` bottleneck, four
+    expansions (flax's ``ConvTranspose((2, 2), strides=2)``, i.e.
+    ``ConvTranspose2d(k=2, s=2, p=0)`` with the flax kernel flipped and its
+    in/out axes swapped; centre zero-padding to the skip, the skip
+    concatenated after it, a ``DBConv``), a 1x1 head with bias, and the
+    crop back to the input's size.  ``forward(x, train=False)`` ->
+    (logits, None); ``train`` changes nothing (the BN mode is the
+    module's own).  ``upsampling`` and ``bn_eps``/``bn_momentum`` (the
+    trainers' decoder BN settings) are accepted and not read, as in the
+    JAX package."""
+
+    def __init__(self, num_classes: int = 3, in_channels: int = 3, first_outchannels: int = 64,
+                 upsampling: int = 1, bn_eps: float = 1e-5, bn_momentum: float = 0.1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        f = first_outchannels
+        chans = (f, f * 2, f * 4, f * 8)
+        self.contract = nn.ModuleList(DBConv(i, o, generator)
+                                      for i, o in zip((in_channels,) + chans[:-1], chans))
+        self.bottleneck = DBConv(f * 8, f * 16, generator)
+        ups = (f * 16,) + chans[::-1][:-1]
+        self.upconv = nn.ModuleList(_conv_transpose(i, o, generator, kernel_size=2, padding=0)
+                                    for i, o in zip(ups, chans[::-1]))
+        self.expand = nn.ModuleList(DBConv(2 * c, c, generator) for c in chans[::-1])
+        self.segmentation_head = ConvPad(f, num_classes, 1, bias=True, init=torch_conv_default,
+                                         generator=generator)
+
+    def forward(self, x, train: bool = False):
+        h, w = x.shape[-2:]
+        padh, padw = (4 - h % 4) % 4, (4 - w % 4) % 4
+        y = F.pad(x, (4, padw + 4, 4, padh + 4), mode="reflect")
+        skips = []
+        for block in self.contract:
+            y = block(y)
+            skips.append(y)
+            y = F.max_pool2d(y, 2, 2)
+        y = self.bottleneck(y)
+        for up, block, skip in zip(self.upconv, self.expand, skips[::-1]):
+            y = up(y)
+            dh, dw = skip.shape[-2] - y.shape[-2], skip.shape[-1] - y.shape[-1]
+            y = F.pad(y, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+            y = block(torch.cat([y, skip], dim=1))
+        return self.segmentation_head(y)[..., :h, :w], None
+
+
+@register("VQUnetwithSalientloss")
+class VQUnetwithSalientloss(nn.Module):
+    """A VQ U-Net (zero-padded encoder, ``_VQHead``: a 3x3 head with bias
+    and the x2 upsample) with an auxiliary saliency decoder on the deepest
+    quantized stage: ``ConvBNReLU`` to 512, 256, 64 and 32 channels, each
+    followed by a x2 half-pixel bilinear resize, then a bias-free 3x3 conv
+    to one channel and a sigmoid.  ``forward(x, train=False,
+    init_codebook=False, generator=None)`` -> (out, commit, usage) with
+    ``train`` false, else (out, commit, usage, saliency (N, 1, H/2,
+    W/2))."""
+
+    def __init__(self, encoder_name: str, num_classes: int, vq_cfg, in_channels: int = 3,
+                 decoder_channels: Optional[Sequence[int]] = None, depth: int = 5,
+                 upsampling: int = 2, encoder_weights: Optional[str] = None,
+                 bn_eps: float = 1e-5, bn_momentum: float = 0.1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.upsampling = upsampling
+        self.core = VQUnetCore(encoder_name, vq_cfg, in_channels, decoder_channels, depth,
+                               bn_eps=bn_eps, bn_momentum=bn_momentum, generator=generator)
+        self.segmentation_head = _vq_head(self.core.decoder_channels[-1], num_classes, generator)
+        enc_ch = self.core.encoder.encoder_channels()
+        chans = (512, 256, 64, 32)
+        self.salient_decoder = nn.ModuleList(
+            ConvBNReLU(i, o, 3, generator=generator)
+            for i, o in zip((enc_ch[-1],) + chans[:-1], chans))
+        self.salient_out = ConvPad(32, 1, 3, 1, 1, bias=False, generator=generator)
+
+    def init_codebook_(self, x: torch.Tensor, generator: torch.Generator):
+        self.core.init_codebook_(x, generator)
+
+    def forward(self, x, train: bool = False, init_codebook: bool = False,
+                generator: Optional[torch.Generator] = None):
+        dec, commit, usage, feats = self.core(x, train=train, init_codebook=init_codebook,
+                                              generator=generator, return_features=True)
+        out = _head_out(self.segmentation_head, dec, self.upsampling)
+        if not train:
+            return out, commit, usage
+        aux = feats[-1]
+        for block in self.salient_decoder:
+            aux = block(aux)
+            aux = resize_bilinear(aux, (aux.shape[-2] * 2, aux.shape[-1] * 2))
+        return out, commit, usage, torch.sigmoid(self.salient_out(aux))
 
 
 @register("vqashunet")

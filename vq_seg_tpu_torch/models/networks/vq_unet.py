@@ -149,15 +149,18 @@ class VQUnetCore(nn.Module):
             vq.init_codebook_(f, generator)
 
     def forward(self, x, train: bool = False, init_codebook: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, return_features: bool = False):
         """``train`` selects the STE and the commitment loss; the BN mode is
         the module's own (``.train()``/``.eval()``).  ``init_codebook=True``
         runs each VQ stage's k-means on its features in this forward, from
-        ``generator``, stage by stage from the shallowest."""
+        ``generator``, stage by stage from the shallowest.
+        ``return_features`` also returns the quantized stage outputs."""
         features = self._features(x)
         commit, usage_vec = quantize_stages(self.codebooks, features, x, train, init_codebook,
                                             generator)
         dec = self.decoder(features)
+        if return_features:
+            return dec, commit, usage_vec, features
         return dec, commit, usage_vec
 
 
@@ -201,10 +204,42 @@ class VQUnet_v2(nn.Module):
         return torch.softmax(out, dim=1), commit, usage
 
 
+@register("vqunet_v1")
+class VQUnet_v1(nn.Module):
+    """VQ at the deepest stage only: ``vq_cfg.num_embeddings`` becomes
+    ``[0] * (depth - 1) + [K]`` with K its last entry (or the int itself);
+    a zero-padded encoder, a 3x3 head with bias and the x2 upsample, no
+    softmax.  ``forward(x, train=False, init_codebook=False,
+    generator=None)`` -> (out, commit, usage)."""
+
+    def __init__(self, encoder_name: str, num_classes: int, vq_cfg,
+                 encoder_weights: Optional[str] = None, in_channels: int = 3,
+                 decoder_channels: Optional[Sequence[int]] = None, depth: int = 5,
+                 upsampling: int = 2, bn_eps: float = 1e-5, bn_momentum: float = 0.1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cfg = dict(vq_cfg)
+        k = cfg["num_embeddings"]
+        cfg["num_embeddings"] = [0] * (depth - 1) + [k[-1] if isinstance(k, (list, tuple)) else k]
+        self.upsampling = upsampling
+        self.core = VQUnetCore(encoder_name, cfg, in_channels, decoder_channels, depth,
+                               bn_eps=bn_eps, bn_momentum=bn_momentum, generator=generator)
+        self.segmentation_head = _vq_head(self.core.decoder_channels[-1], num_classes, generator)
+
+    def init_codebook_(self, x: torch.Tensor, generator: torch.Generator):
+        self.core.init_codebook_(x, generator)
+
+    def forward(self, x, train: bool = False, init_codebook: bool = False,
+                generator: Optional[torch.Generator] = None):
+        dec, commit, usage = self.core(x, train=train, init_codebook=init_codebook,
+                                       generator=generator)
+        return _head_out(self.segmentation_head, dec, self.upsampling), commit, usage
+
+
 class _PTNet(nn.Module):
     """Skeleton of the prototype-loss U-Nets: the reflect-padded trunk, a
     head chosen by ``head_kernel``/``head_bias``/``head_layers`` and the
-    prototype loss chosen by ``proto_kind``.  ``encoder_weights`` names
+    prototype loss chosen by ``proto_kind`` (None: none).  ``encoder_weights`` names
     pretrained weights that are never fetched here: the weights come from a
     checkpoint or from the trainer's state factory."""
 
@@ -243,6 +278,8 @@ class _PTNet(nn.Module):
     def _proto(self, num_classes, channels, pt_init, use_feature, margin, scale, t, generator):
         kw = dict(num_classes=num_classes, embedding_dim=channels, pt_init=pt_init,
                   use_feature=use_feature, generator=generator)
+        if self.proto_kind is None:  # no prototype loss (``nopt``)
+            return None
         if self.proto_kind == "reliable_v2":
             return ReliablePrototypeLossv2(margin=margin, scale=scale, **kw)
         if self.proto_kind == "reliable":

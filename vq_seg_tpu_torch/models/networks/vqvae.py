@@ -30,13 +30,14 @@ from . import register
 
 
 def _conv_transpose(in_channels: int, out_channels: int,
-                    generator: Optional[torch.Generator]) -> nn.ConvTranspose2d:
-    """flax ``nn.ConvTranspose(out, (4, 4), strides=(2, 2), padding="SAME")``:
-    output = 2 x input at every size; flax's lecun-normal kernel (fan in =
-    16 x in_channels, truncated at two standard deviations) and zero
-    bias."""
-    up = nn.ConvTranspose2d(in_channels, out_channels, 4, stride=2, padding=1)
-    std = math.sqrt(1.0 / (16 * in_channels)) / 0.87962566103423978
+                    generator: Optional[torch.Generator], kernel_size: int = 4,
+                    padding: int = 1) -> nn.ConvTranspose2d:
+    """flax ``nn.ConvTranspose(out, (k, k), strides=(2, 2), padding="SAME")``
+    for k = 4 (``padding`` 1) or 2 (``padding`` 0): output = 2 x input at
+    every size; flax's lecun-normal kernel (fan in = k² x in_channels,
+    truncated at two standard deviations) and zero bias."""
+    up = nn.ConvTranspose2d(in_channels, out_channels, kernel_size, stride=2, padding=padding)
+    std = math.sqrt(1.0 / (kernel_size ** 2 * in_channels)) / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(up.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
         up.bias.zero_()

@@ -14,9 +14,12 @@ flagship), ``reptcps`` (``config/vqreptunet1x1.json`` and its siblings),
 (``config/vq_pt_unet_easyhard.json``), ``angularv3``
 (``config/vqreptunetangularv3.json``; ``vqreptunetangular.json`` trains
 under ``reptcps``), ``supconcps`` (``config/sup_con_loss.json``),
-``semiweed`` (``config/semiweednet.json``) and ``selfsup``
-(``config/vqvaev2_selfsup.json``); ``unimatch`` and ``salientcps`` raise
-(ROADMAP.md, queue 1, item 11).  The JAX CLI's parallelism flags and
+``semiweed`` (``config/semiweednet.json``), ``selfsup``
+(``config/vqvaev2_selfsup.json``), ``unimatch`` (the ``unimatch`` network;
+no shipped config) and ``salientcps`` (``VQUnetwithSalientloss`` with
+``train.salient_dir``; no shipped config): every mode of the JAX CLI, and
+``sup`` also runs ``config/obia_CWFID.json`` (fcn32s on an OBIA tree), so
+all 41 shipped configs train.  The JAX CLI's parallelism flags and
 ``--trace`` are not offered.
 """
 from __future__ import annotations
@@ -27,8 +30,7 @@ from .config import load_config
 
 MODES = ("cps", "sup", "selfsup", "plaincps", "unimatch", "salientcps", "vqpt", "reptcps",
          "angularv3", "easyhard", "objcps", "supconcps", "semiweed")
-PORTED = ("cps", "reptcps", "sup", "plaincps", "objcps", "vqpt", "easyhard", "angularv3",
-          "supconcps", "semiweed", "selfsup")
+PORTED = MODES  # every mode of the JAX CLI trains here
 
 
 def main(argv=None):
@@ -41,9 +43,6 @@ def main(argv=None):
     opt = parser.parse_args(argv)
     cfg = load_config(opt.config_path)
     mode = opt.mode or cfg.get("mode") or "cps"
-    if mode not in PORTED:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP.md, queue 1, "
-                                  f"item 11); the port trains {', '.join(PORTED)}")
     from . import training
 
     trainer = {"cps": training.train, "reptcps": training.train_rept_cps,
@@ -52,7 +51,8 @@ def main(argv=None):
                "easyhard": training.train_easyhard_cps,
                "angularv3": training.train_angularv3_cps,
                "supconcps": training.train_supcon_cps, "semiweed": training.train_semiweed,
-               "selfsup": training.train_selfsup}[mode]
+               "selfsup": training.train_selfsup, "unimatch": training.train_unimatch,
+               "salientcps": training.train_salient_cps}[mode]
     trainer(cfg, max_steps_per_epoch=opt.max_steps_per_epoch, device=opt.device)
 
 

@@ -9,7 +9,9 @@ softmax output is softmaxed again inside CE, as in the JAX package.  The
 entropy-percentile ramp ``drop_percent = 100 - drop * (1 - epoch /
 num_epochs)`` (``unsup_loss_drop_percent``, default 80) feeds the
 networks that take a percent.  ``half=True`` runs the forward under bf16
-``torch.autocast``; the losses are f32.
+``torch.autocast``; the losses are f32.  The dropout of ``fcn32s`` (and of
+any network whose forward takes ``dropout``) draws its masks from the
+driver's generator (``sup_dropout``).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..data import BaseDataset, Loader, NormalizedDataset
+from ..data import BaseDataset, Loader, NormalizedDataset, OBIADataset
 from ..device import resolve_device
 from ..losses import cross_entropy_loss, make_loss
 from ..metrics.measurement import confusion_matrix, miou
@@ -108,28 +110,36 @@ def forward_args(forward_mode: str, img, target, extra):
 
 def make_sup_train_step(dice_loss, *, num_classes: int, ce_weight=None,
                         forward_mode: str = "gt_extra", half: bool = False):
-    """Build ``train_step(state, img, target, extra) -> (state, metrics,
-    pred)``.  ``forward_mode`` is the network's signature: "plain" (x),
-    "gt" (x, gt) or "gt_extra" (x, gt, percent-or-th, with ``extra``).
-    ``metrics`` holds device tensors: loss, sup_loss, commitment_loss,
-    prototype_loss, miou, iou_list and code_usage (the mean over VQ
-    stages, 0 without VQ)."""
+    """Build ``train_step(state, img, target, extra, dropout=None) ->
+    (state, metrics, pred)``.  ``forward_mode`` is the network's signature:
+    "plain" (x), "gt" (x, gt) or "gt_extra" (x, gt, percent-or-th, with
+    ``extra``).  ``dropout`` (a callable ``shape -> keep mask``) is handed
+    to the forward where it is given.  The forward's output is bare logits
+    or a tuple ``(out[, commit[, usage[, proto]]])`` whose missing or None
+    terms count 0.  ``metrics`` holds device tensors: loss, sup_loss,
+    commitment_loss, prototype_loss, miou, iou_list and code_usage (the
+    mean over VQ stages, 0 without VQ)."""
 
-    def train_step(state: TrainState, img, target, extra):
+    def train_step(state: TrainState, img, target, extra, dropout=None):
         model = state.model
         was_training = model.training
         model.train()
+        kw = {} if dropout is None else {"dropout": dropout}
         try:
             with torch.autocast(img.device.type, dtype=torch.bfloat16, enabled=half):
-                out = model(*forward_args(forward_mode, img, target, extra), train=True)
+                out = model(*forward_args(forward_mode, img, target, extra), train=True, **kw)
         finally:
             model.train(was_training)
         zero = img.new_zeros((), dtype=torch.float32)
-        if isinstance(out, tuple):  # (out, commit, usage[, proto])
-            pred, commit, usage = out[:3]
-            proto = out[3] if len(out) > 3 else zero
-        else:
-            pred, commit, usage, proto = out, zero, img.new_zeros((0,)), zero
+        pred, commit, usage, proto = out, zero, img.new_zeros((0,)), zero
+        if isinstance(out, tuple):  # (out[, commit[, usage[, proto]]])
+            pred = out[0]
+            if len(out) > 1 and out[1] is not None:
+                commit = out[1]
+            if len(out) > 2:
+                usage = out[2]
+            if len(out) > 3 and out[3] is not None:
+                proto = out[3]
         pred = pred.float()
         sup = (dice_loss(pred, target)
                + 0.5 * cross_entropy_loss(pred, target, ignore_index=IGNORE, weight=ce_weight))
@@ -153,26 +163,33 @@ def make_sup_train_step(dice_loss, *, num_classes: int, ce_weight=None,
     return train_step
 
 
+def sup_dropout(cfg, device) -> Callable:
+    """The sup driver's dropout draws: a callable ``shape -> keep mask``
+    (probability 0.5) from a generator on ``device`` seeded ``train.seed``
+    (default 0); every call draws a new mask."""
+    generator = torch.Generator(device=device).manual_seed(int(cfg.train.get("seed", 0)))
+    return lambda shape: torch.rand(shape, generator=generator, device=device) < 0.5
+
+
 def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
           history: Optional[list] = None) -> TrainState:
     """The supervised driver (train_sup.py flow).  Returns the final state.
 
     * Data: ``{cfg.train.data_dir}/train`` labelled, seed 0;
       ``cfg.train.dataset`` "normalized" normalises the inputs
-      (``norm_mean``/``norm_std``, default 0.5); "obia" raises.
+      (``norm_mean``/``norm_std``, default 0.5); "obia" trains on
+      ``target/`` and the OBIA pseudo-targets of ``obia/``
+      (``OBIADataset``; ``tools/obia.py`` writes them).
     * With ``cfg.train.save_dir``: a run directory ``{project_name}_sup_{n}``
       with ``ckpoints/last.ckpt`` = ``{"model_1", "epoch"}`` every epoch,
       and the JSONL logger (or wandb) with ``wandb_logging``.
     * The init phase on the first batch; ``half`` runs the forwards under
-      bf16 autocast; ``encoder_weights`` is honoured.
+      bf16 autocast; ``encoder_weights`` is honoured; a network whose
+      forward takes ``dropout`` gets ``sup_dropout``'s masks.
     * ``history``: a list that gets one dict per epoch.
     """
     device = resolve_device(device)
     ds_kind = cfg.train.get("dataset", "base")
-    if ds_kind == "obia":
-        raise NotImplementedError(
-            "dataset 'obia' is not ported yet: it needs fcn32s, the VGG encoder and the OBIA "
-            "dataset (ROADMAP.md, queue 1, 'The rest of the model zoo')")
     seed_everything()
     num_classes = cfg.num_classes
     batch_size = cfg.train.batch_size
@@ -185,6 +202,8 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
         dataset = NormalizedDataset(root, "labelled", batch_size=batch_size, resize=cfg.resize,
                                     mean=cfg.train.get("norm_mean", 0.5),
                                     std=cfg.train.get("norm_std", 0.5))
+    elif ds_kind == "obia":
+        dataset = OBIADataset(root, batch_size=batch_size, resize=cfg.resize)
     else:
         dataset = BaseDataset(root, "labelled", batch_size=batch_size, resize=cfg.resize)
     loader = Loader(dataset, batch_size, shuffle=True, seed=0, device=device, workers=4)
@@ -203,6 +222,8 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
     train_step = make_sup_train_step(dice, num_classes=num_classes,
                                      ce_weight=criterion.get("weight"),
                                      forward_mode=forward_mode, half=half)
+    dropout = (sup_dropout(cfg, device)
+               if "dropout" in inspect.signature(state.model.forward).parameters else None)
     save_dir = run_dir(cfg, "sup")
     logger = None
     if save_dir is not None and cfg.wandb_logging:
@@ -222,7 +243,7 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
                 init_phase(state, forward_args(forward_mode, img, target, drop_percent),
                            half=half)
                 initted = True
-            state, metrics, _ = train_step(state, img, target, drop_percent)
+            state, metrics, _ = train_step(state, img, target, drop_percent, dropout)
             for k, v in metrics.items():  # on the device, read once per epoch
                 sums[k] = sums.get(k, 0) + v
         batches.close()  # ends the loader's thread of a capped epoch

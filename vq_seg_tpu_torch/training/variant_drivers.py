@@ -1,12 +1,11 @@
 """Variant drivers, counterparts of the JAX package's
 ``training/variant_drivers.py``: ``train_rept_cps``, ``train_plain_cps``,
 ``train_obj_cps``, ``train_vqpt_cps``, ``train_easyhard_cps``,
-``train_angularv3_cps``, ``train_supcon_cps`` and ``train_semiweed``, with
-``_Run`` (the run directory, loaders, epochs and checkpoints they share),
-``plain_step`` (the step and optimizers of ``plaincps`` and ``objcps``) and
-``vqpt_step`` (the step of ``vqpt`` and ``easyhard``).  The ``unimatch``
-and ``salientcps`` drivers of that module are in ROADMAP.md, queue 1,
-"Other losses and trainers".
+``train_angularv3_cps``, ``train_supcon_cps``, ``train_semiweed``,
+``train_unimatch`` and ``train_salient_cps``, with ``_Run`` (the run
+directory, loaders, epochs and checkpoints they share), ``plain_step``
+(the step and optimizers of ``plaincps`` and ``objcps``) and ``vqpt_step``
+(the step of ``vqpt`` and ``easyhard``).
 
 Like the JAX drivers they have no resume, no preemption guard, no bf16 and
 no decoder re-init: ``train.half`` and ``train.init_weights`` are not read,
@@ -24,6 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..data import Loader, SalientDataset
 from ..data.augmentations import make_cutout_mask
 from ..device import full_f32, resolve_device
 from ..losses import make_loss
@@ -39,8 +39,9 @@ from .schedules import make_lr_schedule
 from .supervised import TrainState, create_state, init_phase
 from .variants import (make_angularv3_cps_train_step, make_easyhard_cps_train_step,
                        make_objloss_cps_train_step, make_plain_cps_train_step,
-                       make_rept_cps_train_step, make_semiweed_train_step,
-                       make_supcon_cps_train_step, make_vqpt_cps_train_step)
+                       make_rept_cps_train_step, make_salient_cps_train_step,
+                       make_semiweed_train_step, make_supcon_cps_train_step,
+                       make_unimatch_train_step, make_vqpt_cps_train_step)
 
 
 class _Run:
@@ -48,10 +49,11 @@ class _Run:
     ``log_txt`` and ``ckpoints/``), its logger (JSONL or wandb with
     ``wandb_logging``), loaders, test loader and the per-epoch bookkeeping
     shared by the dual-model drivers.  ``evaluate=False`` runs no test
-    split whatever ``test_every`` says."""
+    split whatever ``test_every`` says; ``loaders`` replaces the labelled
+    and unlabelled loaders of ``semi_loaders``."""
 
     def __init__(self, cfg, tag: str, device, max_steps_per_epoch: Optional[int],
-                 evaluate: bool = True):
+                 evaluate: bool = True, loaders=None):
         self.cfg, self.tag, self.device = cfg, tag, device
         seed_everything()
         save_dir = run_dir(cfg, tag)
@@ -62,7 +64,7 @@ class _Run:
             open(self.log_txt, "w").close()
             if cfg.wandb_logging:
                 self.logger = Logger(cfg, os.path.basename(save_dir), offline_dir=save_dir)
-        self.sup_loader, self.unsup_loader = semi_loaders(cfg, device)
+        self.sup_loader, self.unsup_loader = loaders or semi_loaders(cfg, device)
         self.steps = len(self.unsup_loader)
         if max_steps_per_epoch:
             self.steps = min(self.steps, max_steps_per_epoch)
@@ -71,10 +73,12 @@ class _Run:
         self.tests = make_test_loader(cfg, device) if evaluate else None
 
     def train(self, state, step: Callable, init: Callable, history: Optional[list],
-              epoch_args: Callable[[int], dict] = lambda e: {}):
+              epoch_args: Callable[[int], dict] = lambda e: {},
+              batch_args: Callable[[dict, dict], dict] = lambda sup, unsup: {}):
         """The epochs: ``zip(cycle(sup), unsup)``, ``init(state, l_img,
         l_target)`` before the first step, ``step(state, l_img, l_target,
-        ul_img, **epoch_args(epoch))``, then the epoch's line, evaluation of
+        ul_img, **epoch_args(epoch), **batch_args(sup_batch,
+        unsup_batch))``, then the epoch's line, evaluation of
         model 1 every ``test_every`` epochs and ``{e}ep.ckpt`` every 10
         epochs and ``last.ckpt`` every epoch, the full contract.  A
         one-model state (a supervised ``TrainState``) is evaluated and
@@ -95,7 +99,8 @@ class _Run:
                 if not initted:
                     init(state, l_img, l_target)
                     initted = True
-                state, metrics = step(state, l_img, l_target, ul_img, **extra)
+                state, metrics = step(state, l_img, l_target, ul_img, **extra,
+                                      **batch_args(sup_batch, unsup_batch))
                 for k, v in metrics.items():  # on the device, read once per epoch
                     sums[k] = sums.get(k, 0) + v
             del batches  # ends the loaders' threads of a capped epoch
@@ -553,3 +558,133 @@ def train_semiweed(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
         return step(state, l_img, l_target, ul_img, *draw())
 
     return run.train(state, semiweed_step, lambda *_: None, history)
+
+
+def unimatch_draws(cfg, device) -> Callable:
+    """The ``unimatch`` driver's per-step draws, ``draw((H, W)) -> (mask_1,
+    mask_2, dropout, fp_dropout)``: two CutMix masks at
+    ``train.cutmix_ratio`` (default 0.5) from a CPU generator, put on
+    ``device``, and the dropout of the step's passes from a generator on
+    ``device``, both seeded ``train.seed`` (default 0).  ``dropout`` draws
+    one keep mask (probability 0.5) per shape and step and hands the same
+    one out again for that shape, as the JAX step's one dropout key does;
+    ``fp_dropout`` draws a new one per call."""
+    seed = int(cfg.train.get("seed", 0))
+    generator = torch.Generator().manual_seed(seed)
+    dev_generator = torch.Generator(device=device).manual_seed(seed)
+    ratio = float(cfg.train.get("cutmix_ratio", 0.5))
+
+    def keep(shape):
+        return torch.rand(shape, generator=dev_generator, device=device) < 0.5
+
+    def draw(hw):
+        masks = [make_cutout_mask(generator, tuple(hw), ratio, device=device) for _ in range(2)]
+        by_shape: dict = {}
+
+        def dropout(shape):
+            if shape not in by_shape:
+                by_shape[shape] = keep(shape)
+            return by_shape[shape]
+
+        return masks[0], masks[1], dropout, keep
+
+    return draw
+
+
+def unimatch_state(cfg, schedule, device) -> TrainState:
+    """The ``unimatch`` driver's model (drawn from seed 0) and its Adam;
+    ``encoder_weights`` is honoured."""
+    return create_state(cfg.model, schedule, encoder_weights=cfg.model.params.get(
+        "encoder_weights"), device=device)
+
+
+@full_f32()
+def train_unimatch(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
+                   history: Optional[list] = None):
+    """The ``unimatch`` driver (reference deprecated/train_UniMatch.py) for
+    the ``unimatch`` network: one model.  Returns the final ``TrainState``.
+
+    * Run directory ``{project_name}_unimatch_{n}``; loaders, ``steps``
+      and the LR schedule as ``train_rept_cps``; plain Adam; no init phase.
+    * Per step the draws of ``unimatch_draws`` and the step of
+      ``make_unimatch_train_step`` at ``train.confidence_threshold``
+      (default 0.95) with the criterion's weight.
+    * ``evaluate`` every ``test_every`` epochs; ``last.ckpt`` = ``{model_1,
+      epoch, optimizer_1}`` every epoch.
+    * f32 under ``device.full_f32``; ``half`` is not read.
+    * ``history``: a list that gets one dict per epoch.
+    """
+    device = resolve_device(device)
+    run = _Run(cfg, "unimatch", device, max_steps_per_epoch)
+    state = unimatch_state(cfg, run.schedule, device)
+    step = make_unimatch_train_step(
+        num_classes=cfg.num_classes,
+        confidence_threshold=cfg.train.get("confidence_threshold", 0.95),
+        ce_weight=cfg.train.criterion.get("weight"))
+    draw = unimatch_draws(cfg, device)
+
+    def unimatch_step(state, l_img, l_target, ul_img):
+        return step(state, l_img, l_target, ul_img, *draw(ul_img.shape[-2:]))
+
+    return run.train(state, unimatch_step, lambda *_: None, history)
+
+
+def salient_loaders(cfg, device):
+    """The labelled and unlabelled ``SalientDataset`` loaders over
+    ``{data_dir}/train`` with the maps of ``train.salient_dir``, seeds 0
+    and 1, not padded to a batch multiple (the JAX driver's)."""
+    root = os.path.join(cfg.train.data_dir, "train")
+    bs = cfg.train.batch_size
+    return tuple(Loader(SalientDataset(root, cfg.train.salient_dir, split, resize=cfg.resize),
+                        bs, shuffle=True, seed=seed, device=device, workers=4)
+                 for seed, split in enumerate(("labelled", "unlabelled")))
+
+
+def salient_step(cfg) -> Callable:
+    """The ``salientcps`` step as its driver builds it from ``cfg``:
+    ``cps_loss_weight``, ``total_commitment_loss_weight``,
+    ``auxiliary_loss_weight`` (each default 1) and the criterion's
+    weight."""
+    tc = cfg.train
+    return make_salient_cps_train_step(
+        num_classes=cfg.num_classes, cps_loss_weight=tc.get("cps_loss_weight", 1.0),
+        commitment_loss_weight=tc.get("total_commitment_loss_weight", 1.0),
+        auxiliary_loss_weight=tc.get("auxiliary_loss_weight", 1.0),
+        ce_weight=tc.criterion.get("weight"))
+
+
+@full_f32()
+def train_salient_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
+                      history: Optional[list] = None):
+    """The ``salientcps`` driver (reference deprecated/train_salient_loss.py)
+    for two ``VQUnetwithSalientloss`` models.  Returns the final
+    ``CPSTrainState``.
+
+    * Run directory ``{project_name}_salientcps_{n}``; the loaders of
+      ``salient_loaders`` (``train.salient_dir`` holds a gray PNG per
+      input, e.g. from ``tools/saliency.py``); ``steps`` and the LR schedule
+      as ``train_rept_cps``; plain Adam; ``encoder_weights`` is honoured.
+    * ``plain_init_phase`` on the first labelled batch (the codebooks'
+      k-means, model 1 from seed 0 and model 2 from 1), then the step of
+      ``salient_step`` with each batch's maps.
+    * No evaluation, as the JAX driver; ``{e}ep.ckpt`` every 10 epochs and
+      ``last.ckpt`` every epoch, the full contract.
+    * f32 under ``device.full_f32``; ``half`` is not read.
+    * ``history``: a list that gets one dict per epoch.
+    """
+    device = resolve_device(device)
+    run = _Run(cfg, "salientcps", device, max_steps_per_epoch, evaluate=False,
+               loaders=salient_loaders(cfg, device))
+    state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
+                             encoder_weights=cfg.model.params.get("encoder_weights"),
+                             device=device)
+
+    def maps(sup_batch, unsup_batch):
+        return {"l_sal": sup_batch["salient_map"], "ul_sal": unsup_batch["salient_map"]}
+
+    step = salient_step(cfg)
+
+    def salient(state, l_img, l_target, ul_img, l_sal, ul_sal):
+        return step(state, l_img, l_target, l_sal, ul_img, ul_sal)
+
+    return run.train(state, salient, plain_init_phase, history, batch_args=maps)

@@ -1,9 +1,10 @@
-"""Variant training steps, counterparts of the JAX package's
-``training/variants.py``: ``make_rept_cps_train_step``,
+"""Variant training steps, counterparts of every step of the JAX
+package's ``training/variants.py``: ``make_rept_cps_train_step``,
 ``make_plain_cps_train_step``, ``make_objloss_cps_train_step``,
-``make_vqpt_cps_train_step`` and ``make_easyhard_cps_train_step``.  The
-other variant steps of that module are in ROADMAP.md, queue 1, "Other
-losses and trainers".
+``make_vqpt_cps_train_step``, ``make_easyhard_cps_train_step``,
+``make_angularv3_cps_train_step``, ``make_supcon_cps_train_step``,
+``make_semiweed_train_step``, ``make_unimatch_train_step`` and
+``make_salient_cps_train_step``.
 
 The ``reptcps`` step is CPS for the ``(x, gt, percent)``-signature
 networks, whose prototype loss keeps the rows below the entropy
@@ -48,7 +49,12 @@ exceeds it.  The ``supconcps`` step is the ``vqpt`` step's CPS for
 ``semiweed`` step trains one ``semiweednet``: CE of the labeled pass and
 the diagonal-cosine loss between the MLP projections of two flipped,
 overlapping crops of the unlabeled batch, with the ASPP dropout masks
-given to it.  All run in f32 under ``device.full_f32``.
+given to it.  The ``unimatch`` step trains one ``unimatch`` network
+against its own eval-mode teacher: two CutMix views of the unlabeled batch
+and its feature-perturbed view, with the boxes and dropout masks given to
+it.  The ``salientcps`` step is plain CPS of two ``VQUnetwithSalientloss``
+networks plus their saliency decoders' MSE against the given maps.  All
+run in f32 under ``device.full_f32``.
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ from ..data.augmentations import cutmix
 from ..device import full_f32
 from ..losses import cross_entropy_loss, dc_loss
 from ..metrics.measurement import confusion_matrix, miou
+from ..models.layers import resize_nearest_exact
 from ..models.modules.prototype import percentile
 from ..utils.train_tools import set_lr
 from .cps import CPSTrainState
@@ -533,5 +540,144 @@ def make_semiweed_train_step(criterion, *, num_classes: int, overlap_size: int =
             step_miou, iou_list = miou(confusion_matrix(pred_sup, l_target, num_classes))
         return state, dict(loss=loss.detach(), ce_loss=ce.detach(), dc_loss=dc.detach(),
                            miou=step_miou, iou_list=iou_list)
+
+    return train_step
+
+
+@torch.no_grad()
+def confident_pseudo(pred: torch.Tensor, threshold: float) -> torch.Tensor:
+    """(N, C, H, W) logits -> their argmax where the softmax maximum
+    exceeds ``threshold``, else 255."""
+    prob = torch.softmax(pred.float(), dim=1)
+    pmax, label = torch.max(prob, dim=1)
+    return torch.where(pmax > threshold, label, torch.full_like(label, IGNORE))
+
+
+def make_unimatch_train_step(*, num_classes: int, confidence_threshold: float = 0.95,
+                             ce_weight=None):
+    """Build ``train_step(state, l_img, l_target, ul_img, mask_1, mask_2,
+    dropout=None, fp_dropout=None) -> (state, metrics)``: UniMatch
+    (reference deprecated/train_UniMatch.py) for one ``unimatch`` network
+    (a supervised ``TrainState``).
+
+    * The teacher: the model in eval mode over the unlabeled batch under
+      ``torch.no_grad``.
+    * Two CutMix views, each of the unlabeled batch and of the teacher's
+      *logits* with one box (``mask_1``, ``mask_2``: (H, W), 0 in the box),
+      mixing item i with item i + 1; their pseudo-labels are the mixed
+      logits' argmax where the softmax maximum exceeds
+      ``confidence_threshold``, else 255.
+    * Four train-mode passes, the BN statistics threaded in this order: the
+      labeled batch, the unlabeled batch with ``need_fp`` (whose perturbed
+      output learns the teacher's own pseudo-labels), mix 1, mix 2.
+    * loss = (sup + 0.25 u1 + 0.25 u2 + 0.5 fp) / 2, each CE with ignore
+      index 255 and ``ce_weight``; one Adam update at ``schedule(step)``.
+
+    The JAX step hands one dropout key to all four passes, so a dropout
+    site draws the same mask wherever its shape repeats: ``dropout`` (the
+    ASPP's, a callable ``shape -> keep``) must give one mask per shape
+    (the labeled pass and the two mixes share it; the ``need_fp`` pass's
+    2N rows get another), ``fp_dropout`` the perturbation's two masks, in
+    order.  ``metrics`` holds device tensors: loss, sup_loss, loss_u_1,
+    loss_u_2, loss_u_fp, miou (of the labeled pass) and iou_list."""
+
+    def ce(pred, target):
+        return cross_entropy_loss(pred, target, ignore_index=IGNORE, weight=ce_weight)
+
+    @full_f32()
+    def train_step(state: TrainState, l_img, l_target, ul_img, mask_1, mask_2, dropout=None,
+                   fp_dropout=None):
+        model = state.model
+        was_training = model.training
+        try:
+            model.eval()
+            with torch.no_grad():
+                pred_u = model(ul_img)[0]
+            mix_in_1, mix_pred_1 = cutmix(ul_img, mask_1), cutmix(pred_u, mask_1)
+            mix_in_2, mix_pred_2 = cutmix(ul_img, mask_2), cutmix(pred_u, mask_2)
+            model.train()
+            pred_l, _ = model(l_img, train=True, dropout=dropout)
+            _, pred_fp = model(ul_img, need_fp=True, train=True, dropout=dropout,
+                               fp_dropout=fp_dropout)
+            pred_mix_1, _ = model(mix_in_1, train=True, dropout=dropout)
+            pred_mix_2, _ = model(mix_in_2, train=True, dropout=dropout)
+        finally:
+            model.train(was_training)
+        sup = ce(pred_l, l_target)
+        loss_u_1 = ce(pred_mix_1, confident_pseudo(mix_pred_1, confidence_threshold))
+        loss_u_2 = ce(pred_mix_2, confident_pseudo(mix_pred_2, confidence_threshold))
+        loss_u_fp = ce(pred_fp, confident_pseudo(pred_u, confidence_threshold))
+        loss = (sup + 0.25 * loss_u_1 + 0.25 * loss_u_2 + 0.5 * loss_u_fp) / 2
+        state.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        set_lr(state.opt, state.schedule(state.step))
+        state.opt.step()
+        state.step += 1
+        with torch.no_grad():
+            step_miou, iou_list = miou(confusion_matrix(pred_l, l_target, num_classes))
+        return state, dict(loss=loss.detach(), sup_loss=sup.detach(),
+                           loss_u_1=loss_u_1.detach(), loss_u_2=loss_u_2.detach(),
+                           loss_u_fp=loss_u_fp.detach(), miou=step_miou, iou_list=iou_list)
+
+    return train_step
+
+
+def salient_loss(sal_pred: torch.Tensor, sal_map: torch.Tensor) -> torch.Tensor:
+    """MSE between an (N, 1, h, w) saliency prediction and an (N, H, W)
+    map resized to (h, w) with half-pixel nearest indexing
+    (``jax.image.resize(..., "nearest")``)."""
+    target = resize_nearest_exact(sal_map, tuple(sal_pred.shape[-2:]))[:, None]
+    return torch.mean((sal_pred.float() - target) ** 2)
+
+
+def make_salient_cps_train_step(*, num_classes: int, cps_loss_weight: float = 1.0,
+                                commitment_loss_weight: float = 1.0,
+                                auxiliary_loss_weight: float = 1.0, ce_weight=None):
+    """Build ``train_step(state, l_img, l_target, l_sal, ul_img, ul_sal) ->
+    (state, metrics)``: salient-loss CPS (reference
+    deprecated/train_salient_loss.py) for two ``VQUnetwithSalientloss``
+    networks.
+
+    Four train-mode passes (model 1 and 2 on the labeled batch, then on
+    the unlabeled one); cps = CE(pred_1, argmax pred_2) + CE(pred_2, argmax
+    pred_1) over each model's labeled and unlabeled predictions together;
+    sup = the CE of both labeled passes; the four commitment losses; the
+    four saliency MSEs (``salient_loss``) against ``l_sal``/``ul_sal``
+    ((N, H, W) maps in [0, 1]).  loss = sup + ``cps_loss_weight`` cps +
+    ``commitment_loss_weight`` commitment + ``auxiliary_loss_weight``
+    salient; CE with ignore index 255 and ``ce_weight``.  ``metrics`` holds
+    device tensors: loss, cps_loss, salient_loss, commitment_loss, miou (of
+    ``pred_sup_1``) and iou_list."""
+
+    def ce(pred, target):
+        return cross_entropy_loss(pred, target, ignore_index=IGNORE, weight=ce_weight)
+
+    @full_f32()
+    def train_step(state: CPSTrainState, l_img, l_target, l_sal, ul_img, ul_sal):
+        m1, m2 = state.model_1, state.model_2
+        modes = (m1.training, m2.training)
+        try:
+            m1.train()
+            m2.train()
+            outs = (m1(l_img, train=True), m2(l_img, train=True),
+                    m1(ul_img, train=True), m2(ul_img, train=True))
+        finally:
+            m1.train(modes[0])
+            m2.train(modes[1])
+        pred_sup_1, pred_sup_2, pred_ul_1, pred_ul_2 = (o[0] for o in outs)
+        pred_1 = torch.cat([pred_sup_1, pred_ul_1])
+        pred_2 = torch.cat([pred_sup_2, pred_ul_2])
+        with torch.no_grad():
+            pseudo_1, pseudo_2 = torch.argmax(pred_1, dim=1), torch.argmax(pred_2, dim=1)
+        cps_loss = ce(pred_1, pseudo_2) + ce(pred_2, pseudo_1)
+        sup = ce(pred_sup_1, l_target) + ce(pred_sup_2, l_target)
+        commitment = sum(o[1] for o in outs)
+        salient = sum(salient_loss(o[3], sal)
+                      for o, sal in zip(outs, (l_sal, l_sal, ul_sal, ul_sal)))
+        loss = (sup + cps_loss_weight * cps_loss + commitment_loss_weight * commitment
+                + auxiliary_loss_weight * salient)
+        return state, _update(state, loss, pred_sup_1, l_target, num_classes,
+                              cps_loss=cps_loss, salient_loss=salient,
+                              commitment_loss=commitment)
 
     return train_step

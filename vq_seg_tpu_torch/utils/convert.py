@@ -49,7 +49,17 @@ The tree comes as nested dicts of numpy arrays (the caller does
     ``codebook/VectorQuantizer_{n}`` (``vqvaev2``) or ``codebook/codebook``
     (``vqvaev1``), and the ``decoder``'s ``ConvPad_0``, ``ResBlock_{i}``
     and ``ConvTranspose_{j}``, whose (kh, kw, in, out) kernel becomes
-    ``ConvTranspose2d``'s (in, out, kh, kw) flipped in both spatial axes.
+    ``ConvTranspose2d``'s (in, out, kh, kw) flipped in both spatial axes;
+  * ``fcn32s``: a VGG ``encoder`` whose ``features_{N}`` are the port's
+    ``encoder.features.{N}``, the ``fc6``/``fc7``/``score`` convs and the
+    ``upscore`` transposed conv (no bias); its ``upscore_kernel``, which
+    the JAX forward never reads, has no counterpart;
+  * ``unetoriginal``: ``contract{i}``, ``bottleneck`` and ``expand{i}``
+    (two ``ConvBNReLU`` each, the port's ``contract.{i}.{j}``...) and the
+    ``upconv{i}`` transposed convs (``upconv.{i}``);
+  * ``VQUnetwithSalientloss``: beside its ``core`` and head, the saliency
+    decoder's auto-named ``ConvBNReLU_{0..3}`` and ``ConvPad_0`` (the
+    port's ``salient_decoder.{i}`` and ``salient_out``).
 
 ``cps_state_from_flax`` loads both models of a JAX ``CPSTrainState`` into a
 port ``CPSTrainState``; ``sup_state_from_flax`` the one model of a JAX
@@ -138,7 +148,8 @@ def _conv_transpose(sd: dict, name: str, p: Mapping):
     ``ConvTranspose2d`` (in, out, kh, kw), flipped."""
     k = np.asarray(p["kernel"])[::-1, ::-1]
     sd[f"{name}.weight"] = _t(np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))))
-    sd[f"{name}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
 
 
 def _vqvae_decoder(sd: dict, name: str, p: Mapping, s: Mapping):
@@ -217,7 +228,8 @@ def _encoder(sd: dict, prefix: str, p: Mapping, s: Mapping):
     ``{prefix}cca_{i}.*`` (a resnet), ``{prefix}stem_conv.*``,
     ``{prefix}stage0_block0.*`` (a ConvNeXt)..."""
     for key, sub in p.items():
-        name = f"{prefix}{key.replace('downsample_', 'downsample.')}"
+        flat = key.replace("downsample_", "downsample.").replace("features_", "features.")
+        name = f"{prefix}{flat}"
         if key.startswith("cca_"):
             _cca(sd, name, sub, s[key])
         elif key.startswith("stage"):
@@ -290,7 +302,15 @@ def _top_level(sd: dict, params: Mapping, stats: Mapping, codebooks: Mapping,
             _ska(sd, "ska", sub, st)
         elif key in ("mlp_0", "mlp_1"):
             _linear(sd, key, sub)
-        elif key not in ("segmentation_head", "prototype_loss"):
+        elif key in ("fc6", "fc7", "score"):  # fcn32s
+            _conv(sd, key, sub["Conv_0"])
+        elif key == "upscore" or key.startswith("upconv"):  # fcn32s, unetoriginal
+            _conv_transpose(sd, key.replace("upconv", "upconv."), sub)
+        elif key.startswith(("contract", "expand")) or key == "bottleneck":  # unetoriginal
+            name = key if key == "bottleneck" else f"{key.rstrip('0123456789')}.{key[-1]}"
+            for j in range(2):
+                _cbr(sd, f"{name}.{j}", sub[f"ConvBNReLU_{j}"], st[f"ConvBNReLU_{j}"])
+        elif key not in ("segmentation_head", "prototype_loss", "upscore_kernel"):
             raise ValueError(f"no mapping for params/{key}")
     if "encoder" in params:
         if "codebook" in codebooks:  # vqvaev1's one codebook
@@ -319,6 +339,11 @@ def state_dict_from_flax(variables: Mapping,
                     raise ValueError(f"no mapping for params/core/{key}")
                 hook[1](sd, f"core.{hook[2] or key}", sub, cs.get(key, {}))
         _codebooks(sd, "core.codebooks.", codebooks.get("core", {}), num_embeddings)
+        for key, sub in params.items():  # VQUnetwithSalientloss's saliency decoder
+            if key.startswith("ConvBNReLU_"):
+                _cbr(sd, f"salient_decoder.{key[11:]}", sub, stats[key])
+            elif key == "ConvPad_0":
+                _conv(sd, "salient_out", sub["Conv_0"])
     else:  # networks without a core: their children at the top level
         _top_level(sd, params, stats, codebooks, num_embeddings)
 

@@ -1,4 +1,4 @@
-"""Pretrained encoder weights, counterpart of the ResNet and ConvNeXt
+"""Pretrained encoder weights, counterpart of the ResNet, VGG and ConvNeXt
 parts of the JAX package's ``utils/torch_weights.py``.
 
 The reference fetches ``PRETRAINED_URLS[name][tag]`` through model_zoo
@@ -14,8 +14,10 @@ The port's ``ResNetEncoder`` keeps torchvision's module names, and
 torchvision ResNet state dict maps onto it key for key: ``fc.*`` and
 ``num_batches_tracked`` are dropped, and the BN running statistics load
 with the weights.  A torchvision ConvNeXt state dict is renamed onto the
-port's ``ConvNeXtEncoder`` by ``convert_convnext``.  VGG files raise: that
-encoder is not ported (ROADMAP.md, queue 1, item 10).
+port's ``ConvNeXtEncoder`` by ``convert_convnext``.  The port's
+``VGGEncoder`` keeps torchvision's ``features.N`` indices, so a torchvision
+VGG state dict loads key for key (``classifier.*`` dropped, and with it the
+stages the encoder's depth leaves out).
 """
 from __future__ import annotations
 
@@ -113,14 +115,14 @@ def convert_convnext(state_dict) -> dict:
 
 def pretrained_encoder(model: nn.Module) -> nn.Module:
     """The module a pretrained file loads into: ``core.encoder``, the
-    top-level ``encoder`` (``vqcanetv2``) or its ``backbone`` (the ccavq
-    encoder of ``vqcanetv4``)."""
+    top-level ``encoder`` (``vqcanetv2``, the DeepLab networks, ``fcn32s``)
+    or its ``backbone`` (the ccavq encoder of ``vqcanetv4``)."""
     encoder = model.core.encoder if hasattr(model, "core") else model.encoder
     return getattr(encoder, "backbone", encoder)
 
 
 def load_encoder_weights(encoder: nn.Module, pth_path: str):
-    """Load a torchvision-layout ResNet or ConvNeXt state dict (``.pth``)
+    """Load a torchvision-layout ResNet, VGG or ConvNeXt state dict (``.pth``)
     into ``encoder`` in place: weights, BN affine parameters and BN running
     statistics.  Keys the encoder does not have (``fc.*``, stages beyond its
     depth) are dropped, as is ``num_batches_tracked``; a key of the
@@ -129,15 +131,12 @@ def load_encoder_weights(encoder: nn.Module, pth_path: str):
     ``custom_stem``) keep their drawn weights."""
     sd = torch.load(pth_path, map_location="cpu", weights_only=True)
     convnext = any(".block." in k and k.startswith("features.") for k in sd)
+    vgg = not convnext and any(k.startswith("features.") for k in sd)
     if convnext:
         sd = convert_convnext(sd)
-    elif any(k.startswith("features.") for k in sd):
-        raise NotImplementedError(
-            f"{pth_path} holds a VGG state dict; that encoder is not ported yet "
-            "(ROADMAP.md, queue 1, item 10)")
     own = encoder.state_dict()
     new = {k: v for k, v in sd.items() if k in own and not k.endswith("num_batches_tracked")}
-    covered = own if convnext else [k for k in own if k.split(".")[0] in _RESNET_KEYS]
+    covered = own if convnext or vgg else [k for k in own if k.split(".")[0] in _RESNET_KEYS]
     missing = [k for k in covered if k not in new and not k.endswith("num_batches_tracked")]
     if missing:
         raise ValueError(f"{pth_path} lacks {len(missing)} encoder keys, e.g. {missing[:3]}")
