@@ -35,10 +35,10 @@ check does not hold:
    ``cps_init_phase`` -> ``make_cps_train_step``) with the config's loss
    weights, criterion, LR schedule, ``init_weights`` and bf16 autocast,
    batch 4 labeled + 4 unlabeled, random weights from a seed (pretrained
-   encoders cannot be fetched).  The init phase, then 3 warm-up and 6
+   encoders cannot be fetched).  The init phase, then 2 warm-up and 5
    timed steps on distinct synthetic batches, each ended by a fetch of the
    loss: p50/p90 ms per step, img/s (8 images per step), every loss term,
-   the peak memory and a profile of 3 more steps.  The kernel's launch
+   the peak memory and a profile of 2 more steps.  The kernel's launch
    count must be 18 per step (6 forwards x 3 VQ stages); losses finite,
    parameters and BN running stats changed, codebooks bitwise unchanged.
    The kernel is held against its plain version at the three shapes of a
@@ -70,7 +70,7 @@ check does not hold:
    PyTorch's default TF32 flags (cuDNN may use TF32), so the times are
    those of the trainer's own setting: every forward of the step must see
    cuDNN's and cuBLAS's TF32 off (``device.full_f32``).  The init phase (6
-   launches), 2 warm-up, 4 timed and 2 profiled steps (18 launches
+   launches), 1 warm-up, 3 timed and 1 profiled step (18 launches
    each), each ended by a loss fetch: p50/p90 ms, img/s, peak memory,
    device time per step; parameters changed except the detached
    prototype tables, codebooks unchanged.  One f32 step from the
@@ -87,7 +87,7 @@ check does not hold:
 9. the supervised baseline at full width, bf16 as the configs set it:
    ``only_sup_kmeans.json`` (``vqunet_v2``, 512x512, batch 4: 3 launches
    at init and 3 per step) and ``CWFID_Unet.json`` (``unet``, batch 8: no
-   launch), each 3 warm-up, 6 timed and 3 profiled steps: p50, peak
+   launch), each 2 warm-up, 4 timed and 2 profiled steps: p50, peak
    memory, device time per step; the kernel against its plain version at
    ``vqunet_v2``'s shapes.  Then the sup driver for one epoch on the
    tree: 3 + 3 per step launches and ``last.ckpt`` holding exactly
@@ -96,9 +96,9 @@ check does not hold:
    f32 as the JAX drivers run them, under PyTorch's default TF32 flags
    (every forward must see TF32 off): ``config/vqcanet.json`` (resnet50,
    CCA at the bottleneck, K=512, 512², batch 4+4) through
-   ``plain_init_phase`` (6 launches), 2 warm-up, 5 timed and 2 profiled
+   ``plain_init_phase`` (6 launches), 1 warm-up, 3 timed and 1 profiled
    steps (12 launches each): p50/p90, peak memory, device time per step;
-   ``vqcanet_obj_loss.json`` likewise with 1 warm-up and 3 timed steps;
+   ``vqcanet_obj_loss.json`` likewise with 1 warm-up and 2 timed steps;
    each the kernel step against the plain VQ (loss terms within 1e-4,
    gradients within 1e-3).  One step of each of the 16 shipped
    ``plaincps``/``objcps`` configs at its own width and resize with its
@@ -113,9 +113,9 @@ check does not hold:
    as the JAX drivers run them, under PyTorch's default TF32 flags (every
    forward must see TF32 off): ``config/vq_pt_unet.json`` (``vqptunet``,
    resnet50, K=512, 448², batch 4+4) through ``vqpt_init_phase`` (6
-   launches), 2 warm-up, 5 timed and 2 profiled steps (18 launches each:
+   launches), 1 warm-up, 3 timed and 1 profiled step (18 launches each:
    2 pseudo and 4 train forwards): p50/p90, peak memory, device time per
-   step; ``vq_pt_unet_easyhard.json`` (512²) likewise with 1 warm-up and 3
+   step; ``vq_pt_unet_easyhard.json`` (512²) likewise with 1 warm-up and 2
    timed steps, its masks and flips drawn as the driver draws them; each
    the kernel step against the plain VQ (loss terms within 1e-4,
    gradients within 1e-3; easyhard with one fixed box and a width flip).
@@ -133,13 +133,13 @@ check does not hold:
    flags (every forward must see TF32 off):
    ``config/vqreptunetangularv3.json`` (resnet50, K=512, 448², batch 4+4)
    and ``sup_con_loss.json`` (512²) through their init phases (6 launches),
-   1 warm-up, 3 timed and 1 profiled step (18 launches each; peak memory
+   1 warm-up, 2 timed and 1 profiled step (18 launches each; peak memory
    printed), each with the kernel step against the plain VQ (loss terms
    within 1e-6 relative, gradients within 1e-4); one ``reptcps`` step of
    ``vqreptunetangular.json`` (6 + 18, and its kernel step likewise);
    ``semiweednet.json`` (448², batch 4: no launch) and
    ``vqvaev2_selfsup.json`` (448², batch 4: 3 at init, 3 per step), 1
-   warm-up, 3 timed and 1 profiled step each.  Then, on phase 7's tree,
+   warm-up, 2 timed and 1 profiled step each.  Then, on phase 7's tree,
    one epoch of each driver (``train_angularv3_cps``, ``train_supcon_cps``
    and ``train_rept_cps`` of ``vqreptunetangular.json``: 90 launches each;
    ``train_semiweed``: 0, ``last.ckpt`` = ``{model_1, epoch,
@@ -156,16 +156,16 @@ check does not hold:
    ``build_pseudo_labels`` writes (SLIC, features, its own forest), and
    the port's ``get_saliency_rbd`` maps of a 448x448 tree; their seconds
    are printed.  (a) ``obia_CWFID.json`` (fcn32s on vgg19, 512x512, batch
-   8, bf16): 2 warm-up and 3 timed steps (p50, peak memory) and one
+   8, bf16): 1 warm-up and 2 timed steps (p50, peak memory) and one
    profiled, then the sup driver for one epoch on the OBIA tree (the
    unresolved ``imagenet`` weights must warn), the test CLI's sweep and
    ``Predictor.from_checkpoint``: no launch.  (b) ``--mode unimatch`` at
    ``semiweednet.json``'s width (resnet50 at output stride 16, 448x448,
-   batch 4+4, f32): 2 warm-up, 3 timed and 1 profiled step, then
+   batch 4+4, f32): 1 warm-up, 2 timed and 1 profiled step, then
    ``train_unimatch`` for one epoch on phase 7's tree with its
    evaluation: no launch.  (c) ``--mode salientcps`` at the flagship's
    width (``VQUnetwithSalientloss``, resnet50, K=512, 448x448, batch 4+4,
-   f32): the init phase (exactly 6 launches), 2 warm-up, 3 timed and 1
+   f32): the init phase (exactly 6 launches), 1 warm-up, 2 timed and 1
    profiled step (exactly 12 each), the kernel against its plain version
    at a train pass's shapes, the kernel step against the plain-VQ step
    (loss terms within 1e-6, gradients within 1e-4), and
@@ -175,7 +175,28 @@ check does not hold:
    at its (4 x 14^2, 2048, 512) shape) and ``unetoriginal`` (512x512, no
    launch), and one ``cps`` step of ``nopt`` and ``scheme6`` (the
    flagship's config with the name swapped: 6 at init, 18 per step).
-14. one ``{"kernels": [...]}`` JSON line, the card line, and last
+14. on phase 7's tree and checkpoints: (a) the test CLI with ``use_crf``
+   over phase 7's checkpoints at CWFID's native 1296x966 (exactly 3
+   launches per test image per checkpoint; metrics in [0, 1]; the
+   ``DenseCRF`` seconds per native image and their share of the sweep),
+   and the card's ``DenseCRF`` against the CPU's on a 256x256 crop of a
+   test image and its probabilities (argmax agreement >= 0.999, mean |dQ|
+   <= 1e-4); (b) the flagship step with ``grad_accum_steps`` 2 (bf16 as
+   the config says, batch 4+4, 448x448): init (6 launches), 2 warm-up and
+   3 timed updates at 18 launches per micro-step, p50 per update and per
+   micro-step, peak memory; then in f32 with TF32 off, the parameters
+   bitwise unchanged after the first micro-step and two micro-steps on
+   one batch within 1e-3 relative L2 of one plain step on it; (c)
+   ``python -m vq_seg_tpu_torch.train --trace DIR --max_steps_per_epoch
+   4`` with ``grad_accum_steps`` 2 and ``debug_nans`` for one epoch
+   (exactly 6 + 18 x 4 + 3 per test image; the trace file names the
+   kernel's two kernels; anomaly mode off again), then one step with a
+   NaN in the labelled batch, which raises under ``debug_nans`` and runs
+   through without it; (d) ``sweep`` of 2 trials (the second from the TPE
+   branch) of ``make_cps_objective(epochs=1, max_steps_per_epoch=2)``:
+   exactly the launch count derived and printed before the run, both
+   values in [0, 1], the JSON written.
+15. one ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -213,11 +234,11 @@ TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 E2E_TOL = 1e-3
 TRAIN_BATCH = 4  # labeled, and as many unlabeled
-TRAIN_WARMUP = 3
 # timed and profiled samples are cut phase by phase to keep the script's
-# command time under 420 s with phase 12
-TRAIN_TIMED = 6
-TRAIN_PROFILED = 3
+# command time under 420 s (with phase 12, then again with phase 14)
+TRAIN_WARMUP = 2
+TRAIN_TIMED = 5
+TRAIN_PROFILED = 2
 VQ_PER_STEP = 18  # 6 forwards x 3 VQ stages
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
@@ -234,15 +255,15 @@ VARIANT_DRIVER_EPOCHS = 1
 REPT_CONFIG = os.path.join(ROOT, "config", "vqreptunet1x1.json")
 REPT_SIBLINGS = ("vqreptunet", "vqreeuptunet", "vqretemptunet", "vqreptunetdouble1x1")
 REPT_DROP = 80.0
-REPT_WARMUP, REPT_TIMED, REPT_PROFILED = 2, 4, 2
+REPT_WARMUP, REPT_TIMED, REPT_PROFILED = 1, 3, 1
 # phase 9: the supervised baseline; (config, kernel launches per step)
 SUP_CONFIGS = (("only_sup_kmeans", 3), ("CWFID_Unet", 0))
-SUP_WARMUP, SUP_TIMED, SUP_PROFILED = 3, 6, 3
+SUP_WARMUP, SUP_TIMED, SUP_PROFILED = 2, 4, 2
 # phase 10: plaincps / objcps with the attention networks, f32 as the JAX
 # drivers run them; config -> VQ launches per forward
 PLAIN_CONFIG, OBJ_CONFIG = "vqcanet", "vqcanet_obj_loss"
-PLAIN_WARMUP, PLAIN_TIMED, PLAIN_PROFILED = 2, 5, 2
-OBJ_WARMUP, OBJ_TIMED = 1, 3
+PLAIN_WARMUP, PLAIN_TIMED, PLAIN_PROFILED = 1, 3, 1
+OBJ_WARMUP, OBJ_TIMED = 1, 2
 PLAIN_CONFIGS = {"vqcanet": 3, "vqcanet_obj_loss": 3, "cps_vqv2": 3, "cps_vqv2_kmeans_init": 3,
                  "cps_vqv2_kmeans_with_imagenet_weights": 3, "cps_vqv2_match": 3, "vq_": 3,
                  "vqatunet": 3, "vqcanetv2": 3, "vqcanetv3": 3, "vqcanetv4": 3,
@@ -257,8 +278,8 @@ OBJ_TERMS = ("loss", "cps_loss", "sup_loss", "obj_loss", "commitment_loss")
 # phase 11: vqpt / easyhard with the (x, gt) networks, f32 as the JAX
 # drivers run them
 VQPT_CONFIG, EASYHARD_CONFIG = "vq_pt_unet", "vq_pt_unet_easyhard"
-VQPT_WARMUP, VQPT_TIMED, VQPT_PROFILED = 2, 5, 2
-EASYHARD_WARMUP, EASYHARD_TIMED = 1, 3
+VQPT_WARMUP, VQPT_TIMED, VQPT_PROFILED = 1, 3, 1
+EASYHARD_WARMUP, EASYHARD_TIMED = 1, 2
 VQPT_CONFIGS = ("vq_eu_pt_unet", "vq_nedpt_unet", "vqash", "vqash_deep", "vqashv2")
 EASYHARD_TERMS = ("loss", "cps_loss", "sup_loss", "commitment_loss", "prototype_loss")
 # phase 12: angularv3, supconcps, the vqreptunetangular reptcps step,
@@ -266,7 +287,7 @@ EASYHARD_TERMS = ("loss", "cps_loss", "sup_loss", "commitment_loss", "prototype_
 ANGULAR_CONFIG, SUPCON_CONFIG = "vqreptunetangularv3", "sup_con_loss"
 ANGULAR_REPT_CONFIG, SEMIWEED_CONFIG, SELFSUP_CONFIG = ("vqreptunetangular", "semiweednet",
                                                        "vqvaev2_selfsup")
-SLICE_WARMUP, SLICE_TIMED, SLICE_PROFILED = 1, 3, 1
+SLICE_WARMUP, SLICE_TIMED, SLICE_PROFILED = 1, 2, 1
 # the kernel step against the plain VQ, near-tie rows given the kernel's code
 SLICE_LOSS_TOL, SLICE_GRAD_TOL = 1e-6, 1e-4
 ANGULAR_TERMS = LOSS_TERMS
@@ -279,7 +300,7 @@ SELFSUP_TERMS = ("loss", "recon_loss", "commitment_loss")
 OBIA_CONFIG = "obia_CWFID"
 OBIA_WH, SALIENT_WH = 256, 448
 REST_LABELLED, REST_UNLABELLED = 8, 8
-REST_WARMUP, REST_TIMED = 2, 3
+REST_WARMUP, REST_TIMED = 1, 2
 SALIENT_TERMS = ("loss", "cps_loss", "salient_loss", "commitment_loss")
 # the device kernels of csrc/vq_assign.cu, as the profiler names them
 VQ_KERNEL_NAMES = ("void (anonymous namespace)::vq_mma_kernel",
@@ -2554,6 +2575,283 @@ def rest_phase(card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: 
     return out
 
 
+def crf_accum_sweep_phase(cfg, card: str, vq_cuda, root: str, step_p50: float) -> dict:
+    """Phase 14: on phase 7's tree and run directory, (a) the test CLI with
+    the dense CRF over phase 7's checkpoints, and the card's ``DenseCRF``
+    against the CPU's on a crop; (b) the flagship step with
+    ``grad_accum_steps`` 2; (c) the train CLI under ``--trace`` with
+    accumulation and ``debug_nans``, then a NaN step with and without the
+    knob; (d) the TPE sweep with the trainer-integrated objective.  Returns
+    the launches per path and the times."""
+    from vq_seg_tpu_torch import test as test_cli
+    from vq_seg_tpu_torch import train as train_cli
+    from vq_seg_tpu_torch.device import full_f32
+    from vq_seg_tpu_torch.losses import make_loss
+    from vq_seg_tpu_torch.training import (cps_init_phase, create_cps_state,
+                                           make_cps_train_step, make_lr_schedule)
+    from vq_seg_tpu_torch.training.sweep import make_cps_objective, sweep
+    from vq_seg_tpu_torch.utils import crf as crf_module
+    from vq_seg_tpu_torch.utils.debug import enable_nan_debug, finite_or_raise
+
+    tc = cfg.train
+    hw, th, half = int(cfg.resize), float(tc.confidence_threshold), bool(tc.half)
+    num_classes = int(cfg.num_classes)
+    n_test = DRIVER_TEST
+    run_cfg = copy.deepcopy(cfg)
+    run_cfg.train.update(data_dir=root, save_dir=os.path.join(root, "runs"), test_every=1)
+    run_cfg.test.update(data_dir=root, save_dir=os.path.join(root, "test_out"))
+    out = {}
+    marks = [time.perf_counter()]
+
+    # -- (a) the test CLI with --crf over phase 7's checkpoints
+    ck_dir = os.path.join(root, "runs", f"{cfg.project_name}_hybrid_0", "ckpoints")
+    n_ckpts = len([n for n in os.listdir(ck_dir) if n.endswith(".ckpt")])
+    crf_cfg = copy.deepcopy(run_cfg)
+    crf_cfg.test.update(weights=ck_dir, save_dir=os.path.join(root, "test_crf"), save_img=False)
+    crf_times, crf_inputs = [], []
+    real_call = crf_module.DenseCRF.__call__
+
+    def timed_crf(self, image, prob_map):
+        if not crf_inputs:
+            crf_inputs.append((image.clone(), prob_map.clone()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = real_call(self, image, prob_map)
+        torch.cuda.synchronize()
+        crf_times.append(time.perf_counter() - t0)
+        return q
+
+    crf_module.DenseCRF.__call__ = timed_crf
+    vq_cuda.launches = 0
+    try:
+        t0 = time.perf_counter()
+        best_path, best = test_cli.test(crf_cfg, use_crf=True)
+        crf_sweep_s = time.perf_counter() - t0
+    finally:
+        crf_module.DenseCRF.__call__ = real_call
+    out["crf_sweep"] = vq_cuda.launches
+    check(out["crf_sweep"] == 3 * n_test * n_ckpts,
+          f"--crf sweep launched the kernel {out['crf_sweep']} times, expected "
+          f"{3 * n_test * n_ckpts}")
+    check(len(crf_times) == n_test * n_ckpts, f"{len(crf_times)} CRF calls")
+    metrics = {k: float(best[k]) for k in ("test_acc", "test_miou", "test_precision",
+                                           "test_recall", "test_f1score")}
+    check(all(0.0 <= v <= 1.0 for v in metrics.values()), f"--crf metrics {metrics}")
+    check(all(0.0 <= v <= 1.0 for v in best["iou_by_class"]), f"iou {best['iou_by_class']}")
+    image, prob = crf_inputs[0]
+    check(tuple(image.shape) == (DRIVER_WH[1], DRIVER_WH[0], 3), f"CRF image {tuple(image.shape)}")
+    check(image.device.type == "cuda", f"the CRF ran on {image.device}")
+    out["crf_s"] = statistics.mean(crf_times)
+    print(f"[crf] test CLI --crf over {n_ckpts} checkpoints x {n_test} images at "
+          f"{DRIVER_WH[0]}x{DRIVER_WH[1]}: best {os.path.basename(best_path)} "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+          + f"; {out['crf_sweep']} vq_assign launches; DenseCRF {out['crf_s']:.3f} s per native "
+          f"image (min {min(crf_times):.3f}, max {max(crf_times):.3f}), "
+          f"{100 * sum(crf_times) / crf_sweep_s:.1f}% of the sweep's {crf_sweep_s:.1f} s | {card}")
+    crop_img, crop_prob = image[:256, :256].contiguous(), prob[:256, :256].contiguous()
+    q_card = crf_module.DenseCRF()(crop_img, crop_prob)
+    t0 = time.perf_counter()
+    q_cpu = crf_module.DenseCRF()(crop_img.cpu(), crop_prob.cpu())
+    cpu_s = time.perf_counter() - t0
+    agree = float((q_card.argmax(-1).cpu() == q_cpu.argmax(-1)).float().mean())
+    dq = float((q_card.cpu() - q_cpu).abs().mean())
+    print(f"[crf] DenseCRF on a 256x256 crop of a test image and its probabilities, card against "
+          f"CPU ({cpu_s:.1f} s there): argmax agreement {agree:.6f} (limit 0.999), mean |dQ| "
+          f"{dq:.3e} (limit 1e-4) | {card}")
+    check(agree >= 0.999 and dq <= 1e-4, f"card CRF against CPU: agreement {agree}, |dQ| {dq}")
+    del crf_inputs, image, prob
+    marks.append(time.perf_counter())
+
+    # -- (b) the flagship step with grad_accum_steps 2
+    accum, n_warm, n_timed = 2, 2, 3
+    criterion = tc.criterion
+    step_kw = dict(num_classes=num_classes, confidence_threshold=th,
+                   cps_loss_weight=tc.cps_loss_weight,
+                   commitment_loss_weight=tc.total_commitment_loss_weight,
+                   prototype_loss_weight=tc.total_prototype_loss_weight,
+                   ce_weight=criterion.get("weight"))
+    dice = make_loss(criterion.name, num_classes, ignore_index=255, weight=criterion.get("weight"))
+    n_micro = accum * (n_warm + n_timed)
+    batches = train_batches(np.random.default_rng(SEED + 14), n_micro, hw)
+    schedule = make_lr_schedule(tc, steps_per_epoch=n_micro)
+    state = create_cps_state(cfg.model, schedule, seed=SEED, init_weights=bool(tc.init_weights),
+                             grad_accum_steps=accum)
+    step = make_cps_train_step(dice, half=half, **step_kw)
+    l_img, target, _ = batches[0]
+    vq_cuda.launches = 0
+    cps_init_phase(state, to_input(l_img), target, th, seed=SEED, half=half)
+    out["accum_init"] = vq_cuda.launches
+    check(out["accum_init"] == 6, f"init phase launched the kernel {out['accum_init']} times")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vq_cuda.launches = 0
+    update_ms, micro_ms, per_micro = [], [], []
+    for u in range(n_warm + n_timed):
+        t_update = 0.0
+        for j in range(accum):
+            n0 = vq_cuda.launches
+            l_img, target, ul_img = batches[u * accum + j]
+            t0 = time.perf_counter()
+            _, metrics, _, _ = step(state, to_input(l_img), target, to_input(ul_img))
+            loss = float(metrics["loss"])  # the micro-step's one read of the card
+            dt = (time.perf_counter() - t0) * 1e3
+            per_micro.append(vq_cuda.launches - n0)
+            check(np.isfinite(loss), f"non-finite loss {loss}")
+            t_update += dt
+            if u >= n_warm:
+                micro_ms.append(dt)
+        if u >= n_warm:
+            update_ms.append(t_update)
+    peak = torch.cuda.max_memory_allocated()
+    out["accum_steps"] = vq_cuda.launches
+    check(per_micro == [VQ_PER_STEP] * n_micro, f"launches per micro-step {per_micro}")
+    check(state.step == n_micro and state.updates == n_warm + n_timed
+          and state.opt_1.mini_step == 0, f"step {state.step}, updates {state.updates}")
+    out["accum_update_p50"] = statistics.median(update_ms)
+    out["accum_micro_p50"] = statistics.median(micro_ms)
+    print(f"[accum] {'bf16' if half else 'f32'} CPS step with grad_accum_steps {accum}, batch "
+          f"{TRAIN_BATCH}+{TRAIN_BATCH}, {hw}x{hw}: init {out['accum_init']} vq_assign launches, "
+          f"then {n_warm} warm-up and {n_timed} timed updates, {out['accum_steps']} launches "
+          f"({VQ_PER_STEP} per micro-step); p50 {out['accum_update_p50']:.3f} ms per update, "
+          f"{out['accum_micro_p50']:.3f} ms per micro-step (phase 6's step p50 {step_p50:.3f} "
+          f"ms); peak memory {peak / 2**30:.2f} GiB | {card}")
+    del state
+
+    # f32, TF32 off: the first micro-step moves no parameter, and the mean of
+    # two equal micro-batches takes one plain step's update
+    with full_f32():
+        step32 = make_cps_train_step(dice, half=False, **step_kw)
+        plain = create_cps_state(cfg.model, schedule, seed=SEED,
+                                 init_weights=bool(tc.init_weights))
+        l_img, target, ul_img = batches[0]
+        args = (to_input(l_img), target, to_input(ul_img))
+        cps_init_phase(plain, args[0], target, th, seed=SEED)
+        accumulating = create_cps_state(cfg.model, schedule, seed=SEED, grad_accum_steps=2)
+        for m, src in ((accumulating.model_1, plain.model_1),
+                       (accumulating.model_2, plain.model_2)):
+            m.load_state_dict(src.state_dict())
+        before = [[p.detach().clone() for p in m.parameters()]
+                  for m in (accumulating.model_1, accumulating.model_2)]
+        step32(accumulating, *args)
+        for m, old in zip((accumulating.model_1, accumulating.model_2), before):
+            check(all(torch.equal(p, q) for p, q in zip(m.parameters(), old)),
+                  "a parameter moved on the first micro-step")
+        step32(accumulating, *args)
+        step32(plain, *args)
+        errs, worst = [], (0.0, "")
+        for ma, mp, old in ((accumulating.model_1, plain.model_1, before[0]),
+                            (accumulating.model_2, plain.model_2, before[1])):
+            pa = torch.cat([p.detach().flatten() for p in ma.parameters()])
+            pp = torch.cat([p.detach().flatten() for p in mp.parameters()])
+            errs.append(rel_l2(pa, pp))
+            for (name, a), p, o in zip(ma.named_parameters(), mp.parameters(), old):
+                e = rel_l2(a.detach() - o, p.detach() - o)
+                if e > worst[0]:
+                    worst = (e, name)
+    print(f"[accum] f32, TF32 off: parameters bitwise unchanged after the first micro-step; two "
+          f"micro-steps on one batch against one plain step on it: parameters' relative L2 "
+          f"{errs[0]:.3e} / {errs[1]:.3e} (limit 1e-3); the updates' largest relative L2 "
+          f"{worst[0]:.3e} at {worst[1]} (the pseudo passes' running statistics moved between "
+          f"the micro-steps)")
+    check(max(errs) <= 1e-3, f"accumulated against plain step: {errs}")
+    del accumulating
+    marks.append(time.perf_counter())
+
+    # -- (c) the train CLI under --trace, with accumulation and debug_nans
+    trace_dir = os.path.join(root, "trace")
+    trace_cfg = copy.deepcopy(run_cfg)
+    trace_cfg.train.update(num_epochs=1, grad_accum_steps=2, debug_nans=True, save_dir=None)
+    cfg_path = os.path.join(root, "trace_cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(trace_cfg.to_dict(), f)
+    vq_cuda.launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(["--config_path", cfg_path, "--trace", trace_dir, "--max_steps_per_epoch", "4"])
+    trace_s = time.perf_counter() - t0
+    out["trace_driver"] = vq_cuda.launches
+    expect = 6 + VQ_PER_STEP * 4 + 3 * n_test
+    check(out["trace_driver"] == expect,
+          f"traced driver launched the kernel {out['trace_driver']} times, expected {expect}")
+    check(not torch.is_anomaly_enabled(), "anomaly mode left on after train returned")
+    traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)
+              if n.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"trace files {traces}")
+    with open(traces[0]) as f:
+        text = f.read()
+    # the demangled names: a template's carries its return type, a plain
+    # function's does not
+    kernels = [n.split("::")[-1] for n in VQ_KERNEL_NAMES]
+    named = [k for k in kernels if k in text]
+    check(named == kernels, f"the trace names {named} of {kernels}")
+    print(f"[trace] python -m vq_seg_tpu_torch.train --trace: 1 epoch x 4 micro-steps "
+          f"(grad_accum_steps 2, debug_nans on), {out['trace_driver']} vq_assign launches "
+          f"(6 + {VQ_PER_STEP} x 4 + 3 x {n_test}); {trace_s:.1f} s with tracing and anomaly mode; "
+          f"trace {os.path.basename(traces[0])} {len(text) / 1e6:.1f} MB naming "
+          f"{len(named)} vq_assign kernels; anomaly mode off again | {card}")
+    del text
+
+    # a NaN in the labelled batch: with the knob the step raises, without it
+    # the step runs through
+    l_img, target, ul_img = batches[1]
+    bad = to_input(l_img)
+    bad[0, 0, 0, 0] = float("nan")
+    raised = None
+    with full_f32(), enable_nan_debug():
+        try:
+            _, metrics, _, _ = step32(plain, bad, target, to_input(ul_img))
+            finite_or_raise({"loss": metrics["loss"]}, "the NaN step")
+        except (RuntimeError, FloatingPointError) as e:
+            raised = e
+    check(raised is not None, "debug_nans: the NaN step did not raise")
+    with full_f32():
+        _, metrics, _, _ = step32(plain, bad, target, to_input(ul_img))
+        loss = float(metrics["loss"])
+    print(f"[trace] NaN in the labelled batch: under debug_nans {type(raised).__name__} "
+          f"({str(raised).splitlines()[0][:100]}); without it the step ran through, loss {loss}")
+    del plain
+    marks.append(time.perf_counter())
+
+    # -- (d) the sweep: 2 trials, the second from the TPE branch
+    n_trials, epochs, max_steps = 2, 1, 2
+    per_trial = (6 + VQ_PER_STEP * max_steps * epochs
+                 + 3 * n_test * sum(1 for e in range(epochs) if e % run_cfg.train.test_every == 0)
+                 + 3 * n_test)
+    print(f"[sweep] expected vq_assign launches: {n_trials} trials x (6 init + {VQ_PER_STEP} x "
+          f"{max_steps} steps + 3 x {n_test} at the driver's evaluation + 3 x {n_test} at the "
+          f"objective's) = {n_trials * per_trial}")
+    sweep_json = os.path.join(root, "sweep.json")
+    times = []
+    objective = make_cps_objective(epochs=epochs, max_steps_per_epoch=max_steps)
+
+    def timed_objective(trial_cfg):
+        t0 = time.perf_counter()
+        value = objective(trial_cfg)
+        times.append(time.perf_counter() - t0)
+        return value
+
+    vq_cuda.launches = 0
+    best_params, best_value, history = sweep(run_cfg, timed_objective, n_trials=n_trials,
+                                             n_startup=1, out_path=sweep_json)
+    out["sweep"] = vq_cuda.launches
+    check(out["sweep"] == n_trials * per_trial,
+          f"sweep launched the kernel {out['sweep']} times, expected {n_trials * per_trial}")
+    values = [h["value"] for h in history]
+    check(len(values) == n_trials and all(0.0 <= v <= 1.0 for v in values), f"values {values}")
+    with open(sweep_json) as f:
+        written = json.load(f)
+    check(len(written["history"]) == n_trials and written["best_value"] == best_value,
+          f"sweep JSON {written}")
+    out["sweep_s_per_trial"] = statistics.mean(times)
+    print(f"[sweep] TPE sweep of {n_trials} trials (1 startup), objective = train 1 epoch x "
+          f"{max_steps} steps + test mIoU: values {[round(v, 4) for v in values]}, best "
+          f"{best_value:.4f} at lr {best_params['train.learning_rate']:.3g}; {out['sweep']} "
+          f"vq_assign launches; {out['sweep_s_per_trial']:.1f} s per trial | {card}")
+    marks.append(time.perf_counter())
+    print("[crf] phase 14 parts: " + ", ".join(
+        f"({part}) {b - a:.1f} s" for part, a, b in zip("abcd", marks, marks[1:])))
+    return out
+
+
 def _no_grad_train_pass(model, x):
     """One train-mode forward of ``model`` on ``x`` without gradients, on a
     copy (the running statistics of ``model`` stay)."""
@@ -2600,6 +2898,7 @@ def main() -> int:
             print(f"[build]   {line.strip()}")
 
     # -- 3. serving path at full width -------------------------------------
+    t_phase = time.perf_counter()
     cfg = load_config(CONFIG)
     hw = int(cfg.resize)
     num_classes = int(cfg.model.params.num_classes)
@@ -2722,14 +3021,20 @@ def main() -> int:
           f"kernel's code in the plain run, per stage: {substituted}")
     check(dmax <= E2E_TOL, f"f32 |dlogits|max {dmax} > {E2E_TOL}")
 
+    print(f"[timing] phases 3-5 in {time.perf_counter() - t_phase:.1f} s")
     # -- 6. training at full width ---------------------------------------------------
+    t_phase = time.perf_counter()
     train = train_phase(cfg, card, vq_cuda, vq_assign_reference, vector_quantizer)
+    print(f"[timing] phase 6 in {time.perf_counter() - t_phase:.1f} s")
 
     # -- 7-9. the drivers at full width, on one PNG tree ----------------------------------
     root = tempfile.mkdtemp(prefix="vq_seg_driver_")
     try:
+        t_phase = time.perf_counter()
         driver = driver_phase(cfg, card, vq_cuda, vq_assign_reference, vector_quantizer,
                               train["p50"], root)
+        print(f"[timing] phase 7 in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
         # phase 8 under PyTorch's default TF32 flags: the reptcps trainer
         # pins f32 itself, and the times are those of its own setting
         torch.backends.cudnn.allow_tf32 = True
@@ -2737,13 +3042,18 @@ def main() -> int:
             rept = rept_phase(card, vq_cuda, vq_assign_reference, vector_quantizer, root)
         finally:
             torch.backends.cudnn.allow_tf32 = False
+        print(f"[timing] phase 8 in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
         sup = sup_phase(card, vq_cuda, vq_assign_reference, vector_quantizer, root)
+        print(f"[timing] phase 9 in {time.perf_counter() - t_phase:.1f} s")
         # -- 10. plaincps and objcps, and 11. vqpt and easyhard, under
         # PyTorch's default TF32 flags as phase 8: the drivers pin f32
         # themselves
         torch.backends.cudnn.allow_tf32 = True
         try:
+            t_phase = time.perf_counter()
             plain = plain_phase(card, vq_cuda, vq_assign_reference, vector_quantizer, root)
+            print(f"[timing] phase 10 in {time.perf_counter() - t_phase:.1f} s")
             t_vqpt = time.perf_counter()
             vqpt = vqpt_phase(card, vq_cuda, vq_assign_reference, vector_quantizer, root)
             print(f"[vqpt] phase 11 in {time.perf_counter() - t_vqpt:.1f} s | {card}")
@@ -2757,10 +3067,14 @@ def main() -> int:
             print(f"[zoo-rest] phase 13 in {time.perf_counter() - t_rest:.1f} s | {card}")
         finally:
             torch.backends.cudnn.allow_tf32 = False
+        # -- 14. the CRF, gradient accumulation, --trace and the sweep
+        t_extra = time.perf_counter()
+        extra = crf_accum_sweep_phase(cfg, card, vq_cuda, root, train["p50"])
+        print(f"[crf] phase 14 in {time.perf_counter() - t_extra:.1f} s | {card}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # -- 14. result lines -----------------------------------------------------------
+    # -- 15. result lines -----------------------------------------------------------
     main_path = results[:len(captured)]  # the three shapes the serving forward gave
     shape_keys = ("case", "n", "c", "k", "ms", "plain_ms", "bound_ms", "f32_simt_bound_ms",
                   "near_ties", "max_abs_err")
@@ -2888,6 +3202,15 @@ def main() -> int:
                                                                  "salientcps")},
         "rest_vq_device_ms_per_step": rest["salientcps"]["vq_ms"],
         "rest_shapes": [{key: r[key] for key in shape_keys} for r in rest["cases"]],
+        # phase 14: the test CLI with --crf over phase 7's checkpoints, the
+        # accumulated flagship step (init and micro-steps), the traced
+        # driver with accumulation and debug_nans, and the sweep's 2 trials
+        "launches_extra": {k: extra[k] for k in ("crf_sweep", "accum_init", "accum_steps",
+                                                 "trace_driver", "sweep")},
+        "crf_s_per_native_image": extra["crf_s"],
+        "accum_update_p50_ms": extra["accum_update_p50"],
+        "accum_micro_p50_ms": extra["accum_micro_p50"],
+        "sweep_s_per_trial": extra["sweep_s_per_trial"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

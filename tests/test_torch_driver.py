@@ -24,8 +24,9 @@ Port-only: resume ("auto" continues at the saved epoch + 1 with models and
 optimizers restored bitwise and the LR at ``schedule(step)``), preemption
 (a full-contract ``last.ckpt``, then a stop), ``evaluate`` against JAX's
 ``evaluate`` on mapped weights (1e-6), the test CLI's sweep, the train CLI
-in a subprocess, and what is not ported (the test CLI's ``--crf``)
-raising.
+in a subprocess, the test CLI's ``--crf`` on a CPU checkpoint, the knobs
+that are not ported raising, and ``debug_nans`` raising on a step with a
+NaN input while the default trains through it.
 """
 import json
 import os
@@ -344,8 +345,7 @@ def test_train_cli_runs_on_the_cpu(synthetic_dataset, tmp_path):
 
 
 @pytest.mark.parametrize("knob,value", [("scan_steps", 2), ("fused_step", True),
-                                        ("zero_opt", True), ("grad_accum_steps", 2),
-                                        ("mesh", object())])
+                                        ("zero_opt", True), ("mesh", object())])
 def test_unported_knobs_raise(synthetic_dataset, tmp_path, knob, value):
     kw = {"mesh": value} if knob == "mesh" else {}
     cfg = _cfg(synthetic_dataset, str(tmp_path / "runs"), **({} if kw else {knob: value}))
@@ -353,15 +353,56 @@ def test_unported_knobs_raise(synthetic_dataset, tmp_path, knob, value):
         cps.train(Config(cfg), device="cpu", **kw)
 
 
-def test_unported_modes_and_options_raise(synthetic_dataset, tmp_path):
+@pytest.mark.parametrize("debug_nans", [True, False])
+def test_debug_nans_raises_on_a_nan_step(synthetic_dataset, tmp_path, monkeypatch, debug_nans):
+    """``train.debug_nans``: a NaN in the labelled batch of a step raises
+    (anomaly mode in its backward, or the loss check), and anomaly mode is
+    off again once ``train`` returns; without the knob the same step runs
+    through."""
+    real_step = cps.make_cps_train_step
+
+    def nan_step(*a, **k):
+        step = real_step(*a, **k)
+
+        def run(state, l_img, l_target, ul_img):
+            l_img = l_img.clone()
+            l_img[0, 0, 0, 0] = float("nan")
+            return step(state, l_img, l_target, ul_img)
+
+        return run
+
+    monkeypatch.setattr(cps, "make_cps_train_step", nan_step)
+    cfg = _cfg(synthetic_dataset, str(tmp_path / "runs"), init_weights=False, test_every=0,
+               debug_nans=debug_nans)
+    cfg["train"]["save_dir"] = None  # nothing written
+    cfg = Config(cfg)
+    assert not torch.is_anomaly_enabled()
+    if debug_nans:
+        with pytest.raises((RuntimeError, FloatingPointError), match="nan|non-finite"):
+            cps.train(cfg, max_steps_per_epoch=1, device="cpu")
+    else:
+        state = cps.train(cfg, max_steps_per_epoch=1, device="cpu")
+        assert state.step == 1
+    assert not torch.is_anomaly_enabled()
+
+
+def test_unported_modes_and_options_raise(synthetic_dataset, tmp_path, runs):
     """Every mode trains now (``tests/test_torch_slice_cli.py`` runs the
-    last two); the test CLI's ``--crf`` is not ported."""
+    last two); the test CLI's ``--crf`` scores a CPU checkpoint."""
     cfg = _cfg(synthetic_dataset, str(tmp_path / "runs"))
+    cfg["wandb_logging"] = False
+    sweep = tmp_path / "ckpoints"
+    sweep.mkdir()
+    trained = runs["state"]
+    ckpoints.save_ckpoints(trained.model_1, trained.model_2, 0, 1, trained.opt_1, trained.opt_2,
+                           str(sweep / "a.ckpt"), async_save=False, include_optimizers=False)
+    cfg["test"].update(weights=str(sweep), save_dir=str(tmp_path / "test"), save_img=False)
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(cfg))
     assert set(train_cli.PORTED) == set(train_cli.MODES)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        test_cli.main(["--config_path", str(path), "--crf", "--device", "cpu"])
+    test_cli.main(["--config_path", str(path), "--crf", "--device", "cpu"])
+    results = open(tmp_path / "test" / "ckpoints" / "results.txt").read()
+    assert results.startswith(str(sweep / "a.ckpt")) and "test_miou" in results
     if not torch.cuda.is_available():  # every entry point defaults to the card
         for call in (lambda: cps.train(Config(cfg)),
                      lambda: cps.evaluate(None, [], {}, 3),

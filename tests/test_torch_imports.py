@@ -44,7 +44,8 @@ def test_imports_with_jax_blocked():
                      "models.networks.vqvae", "losses.contrastive", "losses.dc",
                      "training.selfsup", "train", "test", "models.encoders.vgg",
                      "models.networks.fcn", "models.networks.ablation", "tools.slic",
-                     "tools.obia", "tools.forest", "tools.saliency"):
+                     "tools.obia", "tools.forest", "tools.saliency", "utils.crf", "utils.debug",
+                     "utils.profiling", "utils.processing", "data.sampling", "training.sweep"):
             assert "vq_seg_tpu_torch." + name in sys.modules, name
         from vq_seg_tpu_torch.data import fastimg
         assert fastimg._lib is None and not fastimg._tried, "importing must not build the decoder"

@@ -78,6 +78,10 @@ class ConvPad(nn.Conv2d):
             with torch.no_grad():
                 self.bias.zero_()
 
+    def reset_parameters(self):
+        """Nothing: ``__init__`` draws the weight with ``init`` and zeroes the
+        bias, so torch's own draw before it would be thrown away."""
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax's running-stat update.

@@ -9,9 +9,9 @@ swept and the checkpoint with the best test mIoU wins (test_detailviz.py:
 f32): forward, the logits bilinearly resized to the native mask size,
 then accuracy, mIoU, per-class IoU, precision, recall and F1; the results
 are appended to ``{cfg.test.save_dir}/{run}/results.txt`` and the TP/FP
-detail images written to ``imgs/``.  Runs on the card unless ``--device
-cpu`` is given.  ``--crf`` raises: the dense CRF is not ported
-(ROADMAP.md, queue 1, item 13).
+detail images written to ``imgs/``.  ``--crf`` refines each image's
+softmax with ``utils/crf.py::DenseCRF`` (on the image resized to the mask
+size) before scoring.  Runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from .models.layers import resize_bilinear
 from .models.networks import make_model
 from .utils import visualize
 from .utils.ckpoints import load_full
+from .utils.crf import DenseCRF
 from .utils.seg_tools import img_to_label
 
 
@@ -39,9 +40,9 @@ def _nhwc(t: torch.Tensor) -> np.ndarray:
 
 @torch.no_grad()
 def test_loop(cfg, model, weights_path, measurement, save_dir=None, save_img=False,
-              device="cuda"):
-    """Score one checkpoint over ``{cfg.test.data_dir}/test``; None when it
-    does not load."""
+              use_crf=False, device="cuda"):
+    """Score one checkpoint over ``{cfg.test.data_dir}/test``, with the dense
+    CRF's refinement when ``use_crf``; None when it does not load."""
     device = resolve_device(device)
     dataset = BaseDataset(os.path.join(cfg.test.data_dir, "test"), "labelled", batch_size=1,
                           resize=cfg.resize, target_resize=False)
@@ -53,6 +54,7 @@ def test_loop(cfg, model, weights_path, measurement, save_dir=None, save_img=Fal
         print(f"skip {weights_path}: {e}")
         return None
     model.eval()
+    crf = DenseCRF() if use_crf else None
     sums = np.zeros(5)
     iou_sums = None
     n = 0
@@ -63,13 +65,19 @@ def test_loop(cfg, model, weights_path, measurement, save_dir=None, save_img=Fal
         pred = (out[0] if isinstance(out, tuple) else out).float()
         if pred.shape[-2:] != mask.shape[-2:]:
             pred = resize_bilinear(pred, mask.shape[-2:])
+        keep_img = save_img and save_dir is not None
+        if crf is not None or keep_img:  # the image at the mask's size
+            full = (img if img.shape[-2:] == mask.shape[-2:]
+                    else resize_bilinear(img, mask.shape[-2:]))
+        if crf is not None:
+            prob = torch.softmax(pred[0], dim=0)
+            pred = crf(full[0].permute(1, 2, 0), prob.permute(1, 2, 0)).permute(2, 0, 1)[None]
         label = img_to_label(mask, cfg.pixel_to_label)
         acc, miou_v, iou_list, precision_v, recall_v, f1 = measurement.measure(pred, label)
         sums += np.array([acc, miou_v, precision_v, recall_v, f1])
         iou_sums = np.array(iou_list) if iou_sums is None else iou_sums + np.array(iou_list)
         n += 1
-        if save_img and save_dir is not None:
-            full = img if img.shape[-2:] == mask.shape[-2:] else resize_bilinear(img, mask.shape[-2:])
+        if keep_img:
             viz1, viz2 = visualize.make_test_detailed_img(_nhwc(full), _nhwc(pred),
                                                           label.cpu().numpy())
             img_rows.append((batch["filename"][0], viz1[::2, ::2], viz2[::2, ::2]))
@@ -91,10 +99,9 @@ def test_loop(cfg, model, weights_path, measurement, save_dir=None, save_img=Fal
 
 
 def test(cfg, save_img=None, use_crf=False, device="cuda"):
-    """Evaluate ``cfg.test.weights`` (a checkpoint or a directory of them).
-    Returns ``(path, result)`` of the best checkpoint, or None."""
-    if use_crf:
-        raise NotImplementedError("the dense CRF is not ported yet (ROADMAP.md, queue 1, item 13)")
+    """Evaluate ``cfg.test.weights`` (a checkpoint or a directory of them),
+    with the dense CRF when ``use_crf``.  Returns ``(path, result)`` of the
+    best checkpoint, or None."""
     device = resolve_device(device)
     model = make_model(cfg.model, device=device)
     measurement = Measurement(cfg.num_classes)
@@ -111,7 +118,7 @@ def test(cfg, save_img=None, use_crf=False, device="cuda"):
     best = None
     for ck in candidates:
         res = test_loop(cfg, model, ck, measurement, save_dir=save_dir, save_img=save_img,
-                        device=device)
+                        use_crf=use_crf, device=device)
         if res is None:
             continue
         print(ck, {k: round(float(v), 4) for k, v in res.items() if k != "iou_by_class"})
@@ -131,7 +138,7 @@ def test(cfg, save_img=None, use_crf=False, device="cuda"):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("::")[0])
     parser.add_argument("--config_path", required=True)
-    parser.add_argument("--crf", action="store_true", help="dense-CRF refinement (not ported)")
+    parser.add_argument("--crf", action="store_true", help="dense-CRF refinement before scoring")
     parser.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
     opt = parser.parse_args(argv)
     test(load_config(opt.config_path), use_crf=opt.crf, device=opt.device)

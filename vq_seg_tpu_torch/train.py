@@ -19,12 +19,15 @@ under ``reptcps``), ``supconcps`` (``config/sup_con_loss.json``),
 no shipped config) and ``salientcps`` (``VQUnetwithSalientloss`` with
 ``train.salient_dir``; no shipped config): every mode of the JAX CLI, and
 ``sup`` also runs ``config/obia_CWFID.json`` (fcn32s on an OBIA tree), so
-all 41 shipped configs train.  The JAX CLI's parallelism flags and
-``--trace`` are not offered.
+all 41 shipped configs train.  ``--trace DIR`` writes a ``torch.profiler``
+trace of the whole run (host and card) into DIR, for TensorBoard or
+``chrome://tracing``; keep the run short.  The JAX CLI's parallelism flags
+are not offered.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 from .config import load_config
 
@@ -40,6 +43,9 @@ def main(argv=None):
                         help='trainer family; defaults to the config\'s "mode" key, else cps')
     parser.add_argument("--max_steps_per_epoch", type=int, default=None)
     parser.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
+    parser.add_argument("--trace", default=None, metavar="DIR",
+                        help="write a torch.profiler trace of the run into DIR (keep "
+                             "num_epochs small: the whole run is traced)")
     opt = parser.parse_args(argv)
     cfg = load_config(opt.config_path)
     mode = opt.mode or cfg.get("mode") or "cps"
@@ -53,7 +59,12 @@ def main(argv=None):
                "supconcps": training.train_supcon_cps, "semiweed": training.train_semiweed,
                "selfsup": training.train_selfsup, "unimatch": training.train_unimatch,
                "salientcps": training.train_salient_cps}[mode]
-    trainer(cfg, max_steps_per_epoch=opt.max_steps_per_epoch, device=opt.device)
+    from .utils.profiling import trace
+
+    with trace(opt.trace) if opt.trace else contextlib.nullcontext():
+        trainer(cfg, max_steps_per_epoch=opt.max_steps_per_epoch, device=opt.device)
+    if opt.trace:
+        print(f"profiler trace written to {opt.trace}")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ One step, as in the JAX package:
     unsup pass;
   * CPS, supervised, commitment and prototype losses in f32, one backward
     through both models, then each optimizer's update at ``lr =
-    schedule(step)``;
+    schedule(updates applied so far)``;
   * metrics stay on the device: nothing in the step reads a value back to
     the host.
 
@@ -23,8 +23,11 @@ mask after the forwards are f32.  bf16 needs no gradient scaler.  The
 models are put in the BN mode each pass needs and left in the mode they
 were found in.
 
-The JAX package's stacked and fused step compositions batch work for the
-TPU and are not ported (ROADMAP.md, queue 1, item 7).
+``grad_accum_steps`` k > 1 (``create_cps_state``) is the JAX package's
+``optax.MultiSteps(adam, every_k_schedule=k)``: each step is a micro-step
+whose gradient joins a running mean, and Adam updates on every k-th with
+that mean.  The JAX package's stacked and fused step compositions batch
+work for the TPU and are not ported (ROADMAP.md, queue 1, item 1).
 
 The driver, ``train``, runs the step over epochs as the JAX package's
 ``train`` does: PNG loaders, the init phase on the first labeled batch of
@@ -33,6 +36,7 @@ checkpoints on ``ckpt_cadence``, resume and preemption.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -53,6 +57,7 @@ from ..models.networks import make_model
 from ..utils import visualize
 from ..utils.ckpoints import (fetch_ckpt_tree, latest_ckpt, load_full, save_ckpoints, save_tar,
                               wait_for_saves)
+from ..utils.debug import enable_nan_debug, finite_or_raise
 from ..utils.logger import Logger, list_to_separate_log
 from ..utils.preemption import PreemptionGuard
 from ..utils.seed import seed_everything
@@ -66,8 +71,9 @@ IGNORE = 255
 
 @dataclasses.dataclass
 class CPSTrainState:
-    """The two models, their optimizers, the LR schedule and the number of
-    optimizer steps taken."""
+    """The two models, their optimizers, the LR schedule, the number of
+    steps taken (micro-steps under gradient accumulation, as the JAX
+    package's ``state.step`` counts them) and the accumulation's k."""
 
     model_1: nn.Module
     model_2: nn.Module
@@ -75,24 +81,99 @@ class CPSTrainState:
     opt_2: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
+    grad_accum_steps: int = 1
+
+    @property
+    def updates(self) -> int:
+        """Optimizer updates applied: the count the LR schedule reads."""
+        return self.step // self.grad_accum_steps
 
 
-def _adam(params) -> torch.optim.Optimizer:
+_ADAM = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+
+class MultiStepAdam(torch.optim.Adam):
+    """``optax.MultiSteps(optax.adam(schedule), every_k_schedule=k)``: each
+    ``step()`` adds the parameters' gradients to a running mean, ``acc +=
+    (g - acc) / (mini_step + 1)``; on every k-th call Adam updates with the
+    mean and the mean starts again from zero.  On the other calls the
+    parameters and Adam's moments and step count do not move.  A parameter
+    takes part in a micro-step when it has a gradient.
+
+    ``state_dict()`` is Adam's with ``mini_step`` (the micro-steps in the
+    running mean) and ``acc_grads`` (the means by parameter index, as
+    ``state``), the two fields JAX's ``MultiStepsState`` adds, so that a
+    resume lands mid-accumulation where it stopped."""
+
+    def __init__(self, params, every_k: int):
+        super().__init__(params, **_ADAM)
+        self.every_k = every_k
+        self.mini_step = 0
+        self.acc_grads: dict = {}  # parameter -> running mean of its gradients
+
+    def __getstate__(self):  # copies and pickles keep the accumulation
+        return {**super().__getstate__(), "every_k": self.every_k,
+                "mini_step": self.mini_step, "acc_grads": self.acc_grads}
+
+    def _params(self) -> list:
+        return [p for group in self.param_groups for p in group["params"]]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        params = [p for p in self._params() if p.grad is not None]
+        grads = [p.grad for p in params]
+        accs = [self.acc_grads.setdefault(p, torch.zeros_like(p)) for p in params]
+        diff = torch._foreach_sub(grads, accs)
+        torch._foreach_div_(diff, self.mini_step + 1)
+        torch._foreach_add_(accs, diff)
+        self.mini_step = (self.mini_step + 1) % self.every_k
+        if self.mini_step == 0:
+            for p, acc in zip(params, accs):
+                p.grad = acc
+            super().step()
+            for p, g in zip(params, grads):
+                p.grad = g
+            torch._foreach_zero_(accs)
+
+    def state_dict(self) -> dict:
+        sd = super().state_dict()
+        index = {p: i for i, p in enumerate(self._params())}
+        sd["mini_step"] = self.mini_step
+        sd["acc_grads"] = {index[p]: acc for p, acc in self.acc_grads.items()}
+        return sd
+
+    def load_state_dict(self, state_dict: dict):
+        state_dict = dict(state_dict)
+        mini_step = int(state_dict.pop("mini_step", 0))
+        accs = state_dict.pop("acc_grads", {})
+        super().load_state_dict(state_dict)
+        params = self._params()
+        self.mini_step = mini_step
+        self.acc_grads = {params[int(i)]: a.to(params[int(i)].device, params[int(i)].dtype,
+                                                copy=True)
+                          for i, a in accs.items()}
+
+
+def _adam(params, grad_accum_steps: int = 1) -> torch.optim.Optimizer:
     """``optax.adam(schedule, b1=0.9, b2=0.999)``: eps 1e-8, no weight decay;
-    the step writes the rate into the param groups before each update."""
-    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    the step writes the rate into the param groups before each update.
+    With ``grad_accum_steps`` > 1, wrapped as ``optax.MultiSteps``."""
+    if grad_accum_steps > 1:
+        return MultiStepAdam(params, grad_accum_steps)
+    return torch.optim.Adam(params, **_ADAM)
 
 
 def create_cps_state(model_cfg, schedule: Callable[[int], float], *, seed: int = 0,
                      encoder_weights: Optional[str] = None, init_weights: bool = False,
-                     device="cuda") -> CPSTrainState:
+                     grad_accum_steps: int = 1, device="cuda") -> CPSTrainState:
     """Two models drawn from two generators seeded from ``seed``, each with
-    its Adam.  ``encoder_weights`` (a tag or a .pth path,
-    ``utils/torch_weights.py``) loads the same pretrained encoder into both
-    models; a tag that resolves to no file warns and leaves the drawn
-    weights.  Then ``init_weights`` re-draws the decoder and head convs of
-    each model from its own generator, as the JAX package does after its
-    encoder load."""
+    its Adam (a ``MultiStepAdam`` with ``grad_accum_steps`` > 1).
+    ``encoder_weights`` (a tag or a .pth path, ``utils/torch_weights.py``)
+    loads the same pretrained encoder into both models; a tag that
+    resolves to no file warns and leaves the drawn weights.  Then
+    ``init_weights`` re-draws the decoder and head convs of each model
+    from its own generator, as the JAX package does after its encoder
+    load."""
     device = resolve_device(device)
     pretrained = (resolve_pretrained(encoder_weights, model_cfg["params"].get("encoder_name"))
                   if encoder_weights else None)
@@ -105,8 +186,9 @@ def create_cps_state(model_cfg, schedule: Callable[[int], float], *, seed: int =
         if init_weights:
             reinit_modules([model.core.decoder, model.segmentation_head], generator)
         models.append(model.to(device).train())
-    return CPSTrainState(models[0], models[1], _adam(models[0].parameters()),
-                         _adam(models[1].parameters()), schedule)
+    return CPSTrainState(models[0], models[1], _adam(models[0].parameters(), grad_accum_steps),
+                         _adam(models[1].parameters(), grad_accum_steps), schedule,
+                         grad_accum_steps=grad_accum_steps)
 
 
 def cps_init_phase(state: CPSTrainState, l_img: torch.Tensor, l_target: torch.Tensor,
@@ -183,7 +265,7 @@ def make_cps_train_step(dice_loss, *, num_classes: int, confidence_threshold: fl
         state.opt_1.zero_grad(set_to_none=True)
         state.opt_2.zero_grad(set_to_none=True)
         loss.backward()
-        lr = state.schedule(state.step)
+        lr = state.schedule(state.updates)
         for opt in (state.opt_1, state.opt_2):
             for group in opt.param_groups:
                 group["lr"] = lr
@@ -271,14 +353,16 @@ def _adam_step(opt_state: dict) -> int:
 def restore_cps_state(state: CPSTrainState, ck: dict) -> CPSTrainState:
     """Load a checkpoint contract into ``state``: both models and, unless
     it is a light snapshot, both optimizers, and ``state.step`` from Adam's
-    per-parameter step count, so that the LR continues at
-    ``schedule(step)``.  The contract stores no step of its own."""
+    per-parameter step count (the updates) times ``grad_accum_steps`` plus
+    the micro-steps of the running mean, so that the LR continues at
+    ``schedule(updates)``.  The contract stores no step of its own."""
     state.model_1.load_state_dict(ck["model_1"])
     state.model_2.load_state_dict(ck["model_2"])
     if ck.get("optimizer_1") is not None:
         state.opt_1.load_state_dict(ck["optimizer_1"])
         state.opt_2.load_state_dict(ck["optimizer_2"])
-        state.step = _adam_step(ck["optimizer_1"])
+        state.step = (_adam_step(ck["optimizer_1"]) * state.grad_accum_steps
+                      + int(ck["optimizer_1"].get("mini_step", 0)))
     else:
         print("resume: the checkpoint has no optimizer state (a light snapshot): "
               "continuing with fresh Adam moments from step 0")
@@ -345,9 +429,8 @@ def _check_supported(cfg, mesh):
     """Knobs of the JAX driver that batch work for the TPU raise here."""
     tc = cfg.train
     unported = [
-        (int(tc.get("scan_steps", 0) or 0) > 1, "scan_steps > 1", "item 7"),
-        (bool(tc.get("fused_step")), "fused_step", "item 7"),
-        (int(tc.get("grad_accum_steps", 1) or 1) > 1, "grad_accum_steps > 1", "item 7"),
+        (int(tc.get("scan_steps", 0) or 0) > 1, "scan_steps > 1", "item 1"),
+        (bool(tc.get("fused_step")), "fused_step", "item 1"),
         (bool(tc.get("zero_opt")), "zero_opt", "item 12"),
         (mesh is not None, "a mesh", "item 12"),
     ]
@@ -380,9 +463,19 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
     * ``preempt``: a ``PreemptionGuard`` (by default the driver installs
       its own, which latches SIGTERM); once it is set, the epoch ends with
       a full-contract ``last.ckpt`` and the driver returns.
+    * ``cfg.train.grad_accum_steps`` k: each step is a micro-step and the
+      optimizers update on every k-th with the mean gradient
+      (``MultiStepAdam``, the JAX package's ``optax.MultiSteps``); the LR
+      inside Adam is ``schedule(updates)`` and the logged ``lr``
+      ``schedule(micro-steps - 1)``, as the JAX package has them.
+    * ``cfg.train.debug_nans``: anomaly mode (``enable_nan_debug``) while
+      the driver runs, put back as it was when it returns, and each step's
+      loss checked with ``finite_or_raise`` (one read of the card per
+      step).  A backward function that returns NaN raises
+      ``RuntimeError``, a non-finite loss ``FloatingPointError``.
     * ``cfg.train.remat`` is accepted and has no effect: it trades memory
       only, and the flagship step peaks at 8.96 GiB of 80 GB on an NVIDIA
-      H100 80GB HBM3 at 700.00 W (PERF.md).  ``scan_steps``, ``fused_step``, ``grad_accum_steps``,
+      H100 80GB HBM3 at 700.00 W (PERF.md).  ``scan_steps``, ``fused_step``,
       ``zero_opt`` and ``mesh`` raise.
     * ``history``: a list that gets one dict per epoch (times, averages,
       test mIoU, step and LR, checkpoint copy time).
@@ -426,7 +519,9 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
     state = create_cps_state(model_cfg_with_bn(cfg), schedule,
                              encoder_weights=cfg.model.params.get("encoder_weights"),
                              init_weights=bool(cfg.train.get("init_weights", False)),
+                             grad_accum_steps=int(cfg.train.get("grad_accum_steps", 1) or 1),
                              device=device)
+    debug_nans = bool(cfg.train.get("debug_nans"))
     train_step = make_cps_train_step(
         dice, num_classes=num_classes, confidence_threshold=th,
         cps_loss_weight=cfg.train.cps_loss_weight,
@@ -450,7 +545,8 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
     test_loader = make_test_loader(cfg, device)
 
     l_input = l_target = ul_input = pred_sup_1 = pred_ul_1 = None
-    with (preempt or PreemptionGuard()) as preempt:
+    with (preempt or PreemptionGuard()) as preempt, \
+            (enable_nan_debug() if debug_nans else contextlib.nullcontext()):
         for epoch in range(start_epoch, num_epochs):
             trainloader = zip(cycle(iter(sup_loader)), iter(unsup_loader))
             sums: dict = {}
@@ -466,6 +562,8 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
                     initted = True
                 state, metrics, pred_sup_1, pred_ul_1 = train_step(state, l_input, l_target,
                                                                    ul_input)
+                if debug_nans:
+                    finite_or_raise({"loss": metrics["loss"]}, f"step {state.step - 1}")
                 for k, v in metrics.items():  # on the device, read once per epoch
                     sums[k] = sums.get(k, 0) + v
             del trainloader  # ends the loaders' threads of a capped epoch
@@ -483,7 +581,8 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
                          f"{seconds:.1f}s")
             print(print_txt)
             record = {"epoch": epoch, "seconds": seconds, "steps": steps_per_epoch,
-                      "step_start": step_start, "lr_start": float(schedule(step_start)),
+                      "step_start": step_start,
+                      "lr_start": float(schedule(step_start // state.grad_accum_steps)),
                       "step": state.step, "lr": lr, "iou_list": [float(x) for x in iou],
                       "code_usage": code_usage, "test_miou": None, "eval_seconds": None,
                       "ckpt_fetch_seconds": None, "ckpt_files": [],
