@@ -196,7 +196,31 @@ check does not hold:
    branch) of ``make_cps_objective(epochs=1, max_steps_per_epoch=2)``:
    exactly the launch count derived and printed before the run, both
    values in [0, 1], the JSON written.
-15. one ``{"kernels": [...]}`` JSON line, the card line, and last
+15. on phase 7's tree and phase 3's weights: (a) the flagship CPS step
+   (bf16, batch 4+4, 448x448) with ``vq_cfg.ema``, the default decay 0.8
+   and ``restart_threshold`` 0.5: the init phase (6 launches), 1 warm-up,
+   3 timed and 1 profiled step at exactly 18 launches; every codebook,
+   ``cluster_size`` and ``embed_avg`` of both models moved, at least one
+   code revived, each revived code bitwise a row of its pass's features;
+   at the three shapes of a train pass the update from the kernel's idx
+   and counts against the update from the plain version's (counts equal
+   once near-tie rows take the kernel's code; the three tensors within
+   1e-5 relative L2); p50/p90 beside phase 6's, peak memory.  (b) the same
+   step with ``distance: "cosine"``: init, 1 warm-up, 2 timed and 1
+   profiled step, every launch through the kernel's cosine branch, codebook rows of unit
+   norm within 1e-5, and the kernel against its plain version in cosine at
+   the three training shapes.  (c) ``train`` of (a)'s config for one epoch
+   on phase 7's tree (exactly 6 + 18 per step + 3 per test image), its
+   ``last.ckpt`` holding the trained codebook state, and a resumed run
+   whose codebooks, ``cluster_size`` and ``embed_avg`` start bitwise as
+   ``last.ckpt`` holds them.  (d) ``Predictor(quant="int8", batch_size=8)``
+   of phase 3's weights: 3 launches per forward, the parameters' bytes on
+   the card against the bf16 model's, label agreement with the f32
+   predictor >= 0.8, p50/p90 over phase 3's timed samples.  (e) the
+   flagship with ``subpixel_tail``: init, 1 warm-up, 2 timed and 1
+   profiled step at 18 launches, finite losses, p50 and device time beside
+   phase 6's, one served batch of 8 (3 launches).
+16. one ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -302,6 +326,13 @@ OBIA_WH, SALIENT_WH = 256, 448
 REST_LABELLED, REST_UNLABELLED = 8, 8
 REST_WARMUP, REST_TIMED = 1, 2
 SALIENT_TERMS = ("loss", "cps_loss", "salient_loss", "commitment_loss")
+# phase 15: the VQ EMA update and restart on the flagship step (euclidean,
+# then cosine), through the driver, int8 serving and the subpixel tail
+EMA_RESTART = 0.5
+EMA_WARMUP, EMA_TIMED, EMA_PROFILED = 1, 3, 1
+COS_WARMUP, COS_TIMED, COS_PROFILED = 1, 2, 1
+SUB_WARMUP, SUB_TIMED, SUB_PROFILED = 1, 2, 1
+EMA_TOL = 1e-5  # the update from the kernel's idx and counts against the plain version's
 # the device kernels of csrc/vq_assign.cu, as the profiler names them
 VQ_KERNEL_NAMES = ("void (anonymous namespace)::vq_mma_kernel",
                    "void (anonymous namespace)::vq_finish_kernel")
@@ -356,12 +387,14 @@ def profile_window(run, n: int, unit: str, tag: str, label: str, card: str):
     kernel's share of the device time, and the kernels with the most device
     time, per ``unit``.  Returns ``{"device_ms", "vq_ms", "busy"}`` per
     ``unit``, or None (and prints "not measured") when the trace holds no
-    device activity."""
+    device activity.  The card's activity alone is recorded: nothing here
+    reads the host's op events, and tracing them took 2-3 s per profiled
+    flagship step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
             run(i)
@@ -859,7 +892,9 @@ def driver_phase(cfg, card: str, vq_cuda, vq_assign_reference, vector_quantizer,
 
     # resume: one more epoch from the newest last.ckpt
     resume_cfg = copy.deepcopy(run_cfg)
-    resume_cfg.train.update(resume="auto", num_epochs=DRIVER_EPOCHS + 1)
+    # a light snapshot (models only): the script's 1.52 GiB checkpoints add
+    # up to tens of GiB of disk writes, and this one is read by no check
+    resume_cfg.train.update(resume="auto", num_epochs=DRIVER_EPOCHS + 1, light_snapshots=True)
     history2 = []
     vq_cuda.launches = 0
     resumed = train(resume_cfg, history=history2)
@@ -2852,6 +2887,399 @@ def crf_accum_sweep_phase(cfg, card: str, vq_cuda, root: str, step_p50: float) -
     return out
 
 
+def rows_found(rows: torch.Tensor, feats: torch.Tensor, chunk: int = 16) -> bool:
+    """Whether every row of ``rows`` is bitwise a row of ``feats``."""
+    for i in range(0, rows.shape[0], chunk):
+        hit = (feats[None] == rows[i:i + chunk, None]).all(-1).any(-1)
+        if not bool(hit.all()):
+            return False
+    return True
+
+
+def ema_update_check(name, x, cb, metric, vq, vq_cuda, vq_assign_reference) -> dict:
+    """One EMA update (and restart) of copies of ``vq`` from the kernel's idx
+    and counts, and one from the plain version's on the same rows (near-tie
+    rows given the kernel's code, as in phase 5).  Checks that the counts
+    are equal; returns the three tensors' relative L2 differences."""
+    i_k, q_k, c_k = vq_cuda.vq_assign_cuda(x, cb, metric)
+    i_r, _, _ = vq_assign_reference(x, cb, metric)
+    rows, _ = check_near_ties(name, x, cb, i_k, i_r, metric)
+    i_r[rows] = i_k[rows]
+    c_r = torch.bincount(i_r.long(), minlength=cb.shape[0]).to(torch.int32)
+    check(torch.equal(c_k, c_r), f"{name}: the kernel's counts differ from the plain version's")
+    kernel, plain = copy.deepcopy(vq), copy.deepcopy(vq)
+    kernel.ema_update_(x, i_k, q_k, c_k)
+    plain.ema_update_(x, i_r, cb.index_select(0, i_r.long()), c_r)
+    errs = {key: rel_l2(getattr(kernel, key), getattr(plain, key))
+            for key in ("cluster_size", "embed_avg", "embedding")}
+    # one update's time on the card's clock, the host's launches included
+    update_ms = cuda_ms(lambda: kernel.ema_update_(x, i_k, q_k, c_k), reps=10, warmup=2)
+    return {"case": name, "near_ties": int(rows.numel()), "errs": errs,
+            "unit_mass": int((plain.cluster_size == 1.0).sum()), "update_ms": update_ms}
+
+
+def cps_setup(model_cfg, cfg, n_batches: int, seed_offset: int):
+    """A fresh CPS state of ``model_cfg`` with the step of ``cfg.train``, and
+    ``n_batches`` distinct batches; the init phase on the first, its kernel
+    launches counted.  Returns (state, step, batches, init launches)."""
+    from vq_seg_tpu_torch.losses import make_loss
+    from vq_seg_tpu_torch.ops import vq_cuda
+    from vq_seg_tpu_torch.training import (cps_init_phase, create_cps_state,
+                                           make_cps_train_step, make_lr_schedule)
+
+    tc = cfg.train
+    hw, th, half = int(cfg.resize), float(tc.confidence_threshold), bool(tc.half)
+    num_classes, criterion = int(cfg.num_classes), tc.criterion
+    batches = train_batches(np.random.default_rng(SEED + seed_offset), n_batches, hw)
+    state = create_cps_state(model_cfg, make_lr_schedule(tc, steps_per_epoch=n_batches),
+                             seed=SEED, init_weights=bool(tc.init_weights))
+    step = make_cps_train_step(
+        make_loss(criterion.name, num_classes, ignore_index=255, weight=criterion.get("weight")),
+        half=half, num_classes=num_classes, confidence_threshold=th,
+        cps_loss_weight=tc.cps_loss_weight, commitment_loss_weight=tc.total_commitment_loss_weight,
+        prototype_loss_weight=tc.total_prototype_loss_weight, ce_weight=criterion.get("weight"))
+    l_img, target, _ = batches[0]
+    vq_cuda.launches = 0
+    cps_init_phase(state, to_input(l_img), target, th, seed=SEED, half=half)
+    torch.cuda.synchronize()
+    return state, step, batches, vq_cuda.launches
+
+
+def codebook_state(model) -> dict:
+    return {k: t.detach().clone() for k, t in model.state_dict().items()
+            if k.startswith("core.codebooks.")}
+
+
+def ema_phase(cfg, card: str, vq_cuda, vq_assign_reference, vector_quantizer, root: str,
+              model, pred32, serve_batches, serve_p50: float, step_p50: float) -> dict:
+    """Phase 15: (a) the flagship CPS step with ``vq_cfg.ema`` and
+    ``restart_threshold``; (b) the same with ``distance: "cosine"``, the
+    kernel's cosine branch on a training path; (c) the driver with EMA for
+    an epoch and a resume; (d) int8 serving of phase 3's weights; (e) the
+    flagship with ``subpixel_tail``.  Returns launches, cases and times."""
+    import warnings
+
+    from vq_seg_tpu_torch.ops import vq as vq_ops
+    from vq_seg_tpu_torch.serving import Predictor
+    from vq_seg_tpu_torch.training import cps as cps_module
+    from vq_seg_tpu_torch.training import train
+    from vq_seg_tpu_torch.utils import ckpoints
+
+    import gc
+
+    tc = cfg.train
+    hw, th, half = int(cfg.resize), float(tc.confidence_threshold), bool(tc.half)
+    prec = "bf16" if half else "f32"
+    out = {}
+    marks = [time.perf_counter()]
+    gc.collect()  # what the earlier phases left in reference cycles would count in (a)'s peak
+    ema_cfg = copy.deepcopy(cfg)
+    ema_cfg.model.params.vq_cfg.update(ema=True, restart_threshold=EMA_RESTART)
+    vq_cfg = ema_cfg.model.params.vq_cfg
+
+    def run_step(i):
+        l_img, target, ul_img = batches[i]
+        _, metrics, _, _ = step(state, to_input(l_img), target, to_input(ul_img))
+        run_step.metrics = metrics
+        return float(metrics["loss"])  # the step's one read of the card
+
+    def train_pass():
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16, enabled=half):
+            probe(to_input(l_img), target, th, train=True)
+
+    # -- (a) EMA and restart on the flagship CPS step
+    n_steps = EMA_WARMUP + EMA_TIMED + EMA_PROFILED
+    state, step, batches, out["ema_init"] = cps_setup(ema_cfg.model, cfg, n_steps, 15)
+    check(out["ema_init"] == 6, f"init phase launched the kernel {out['ema_init']} times")
+    models = (state.model_1, state.model_2)
+    for m in models:
+        for vq in m.core.codebooks:
+            if hasattr(vq, "embedding"):
+                check(torch.equal(vq.embed_avg, vq.embedding)
+                      and bool((vq.cluster_size == 1.0).all()), "EMA state not reset by the init")
+    post_init = [codebook_state(m) for m in models]
+    records = []
+    real_update = vector_quantizer.VectorQuantizer.ema_update_
+
+    def recording_update(self, feats, idx, quantized, counts):
+        # the restart's dead mask, computed as the update computes it
+        d = self.decay
+        dead = (d * self.cluster_size + (1.0 - d) * counts.float()) < self.restart_threshold
+        real_update(self, feats, idx, quantized, counts)
+        records.append((dead, self.embedding.clone(), feats.detach()))
+
+    vector_quantizer.VectorQuantizer.ema_update_ = recording_update
+    try:
+        vq_cuda.launches = 0
+        times, per_step, losses, peak = timed_steps(run_step, EMA_WARMUP, EMA_TIMED, vq_cuda)
+        prof = profile_window(lambda i: run_step(EMA_WARMUP + EMA_TIMED + i), EMA_PROFILED,
+                              "step", "ema-profile", f"{prec} CPS step with EMA and restart", card)
+    finally:
+        vector_quantizer.VectorQuantizer.ema_update_ = real_update
+    out["ema_steps"] = vq_cuda.launches
+    check(per_step == [VQ_PER_STEP] * (EMA_WARMUP + EMA_TIMED)
+          and out["ema_steps"] == VQ_PER_STEP * n_steps,
+          f"launches per step {per_step} ({out['ema_steps']} in all), expected {VQ_PER_STEP}")
+    check(len(records) == 12 * n_steps, f"{len(records)} EMA updates in {n_steps} steps")
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    terms = {k: float(run_step.metrics[k]) for k in LOSS_TERMS}
+    check(all(np.isfinite(list(terms.values()))), f"non-finite loss terms {terms}")
+    for m, old, name in zip(models, post_init, ("model 1", "model 2")):
+        now = codebook_state(m)
+        same = [k for k in old if torch.equal(now[k], old[k])]
+        check(not same, f"{name}: unchanged by {n_steps} steps with EMA: {same}")
+    revived, updates_with = 0, 0
+    for dead, cb, feats in records:
+        n = int(dead.sum())
+        if n:
+            revived += n
+            updates_with += 1
+            check(rows_found(cb[dead], feats), "a revived code is not a row of its pass's features")
+    check(revived > 0, f"no code revived in {len(records)} EMA updates")
+    del records
+    out["ema_p50"], out["ema_p90"] = p50_p90(times)
+    out["ema_revived"] = revived
+    out["ema_device_ms"] = prof["device_ms"] if prof else None
+    print(f"[ema] {prec} CPS step, vq_cfg ema, decay {vq_cfg.get('decay', 0.8)}, "
+          f"restart_threshold {vq_cfg.restart_threshold}, batch {TRAIN_BATCH}+{TRAIN_BATCH}, "
+          f"{hw}x{hw}: init {out['ema_init']} vq_assign launches, {n_steps} steps at "
+          f"{VQ_PER_STEP} launches, 12 EMA updates per step; every codebook, cluster_size and "
+          f"embed_avg of both models moved; {revived} codes revived in {updates_with} of "
+          f"{12 * n_steps} updates, each bitwise a row of its pass's features; last step "
+          + ", ".join(f"{k} {v:.6f}" for k, v in terms.items()))
+    print(f"[ema] p50 {out['ema_p50']:.3f} ms/step, p90 {out['ema_p90']:.3f} ms over {EMA_TIMED} "
+          f"steps (phase 6's step p50 {step_p50:.3f} ms, "
+          f"{100 * (out['ema_p50'] / step_p50 - 1):+.1f}%); peak memory {peak / 2**30:.2f} GiB"
+          + (f"; device time {prof['device_ms']:.3f} ms/step, vq_assign {prof['vq_ms']:.3f} "
+             f"ms/step" if prof else "") + f" | {card}")
+
+    # the update from the kernel's idx and counts against the plain version's,
+    # at the three shapes of a train pass
+    probe = copy.deepcopy(state.model_1).train()
+    l_img, target, _ = batches[0]
+    captured = capture_vq_shapes(vector_quantizer, train_pass)
+    check(len(captured) == 3, f"captured {len(captured)} VQ calls of a train pass")
+    stages = [vq for vq in probe.core.codebooks if hasattr(vq, "embedding")]
+    out["ema_checks"] = []
+    for i, ((x, cb, metric), vq) in enumerate(zip(captured, stages)):
+        r = ema_update_check(f"ema-stage{3 + i}", x, cb, metric, vq, vq_cuda,
+                             vq_assign_reference)
+        out["ema_checks"].append(r)
+        print(f"[ema-e2e] {r['case']} N={x.shape[0]} C={x.shape[1]}: counts equal (near-tie "
+              f"rows given the kernel's code: {r['near_ties']}); the update from the kernel's "
+              f"idx and counts against the plain version's, relative L2 " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in r["errs"].items()) + f" (limit {EMA_TOL}); "
+              f"{r['unit_mass']} codes at unit mass after it; one update {r['update_ms']:.4f} ms "
+              f"(CUDA events, launches included) | {card}")
+        check(max(r["errs"].values()) <= EMA_TOL, f"{r['case']}: {r['errs']}")
+    out["ema_update_ms_per_step"] = 4 * sum(r["update_ms"] for r in out["ema_checks"])
+    print(f"[ema-e2e] the 12 updates of a step (4 train passes x 3 stages): "
+          f"{out['ema_update_ms_per_step']:.3f} ms | {card}")
+    del probe, captured, stages, state, step, models
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+
+    # -- (b) cosine EMA: the kernel's cosine branch on a training path
+    cos_cfg = copy.deepcopy(ema_cfg)
+    cos_cfg.model.params.vq_cfg.update(distance="cosine")
+    n_steps = COS_WARMUP + COS_TIMED + COS_PROFILED
+    seen = []
+    real_cuda = vq_ops.vq_assign_cuda
+
+    def counting(x, codebook, metric="euclidean"):
+        seen.append(metric)
+        return real_cuda(x, codebook, metric)
+
+    vq_ops.vq_assign_cuda = counting
+    try:
+        state, step, batches, out["cos_init"] = cps_setup(cos_cfg.model, cfg, n_steps, 16)
+        check(seen == ["cosine"] * 6, f"cosine init phase metrics {seen}")
+        seen.clear()
+        vq_cuda.launches = 0
+        times, per_step, losses, peak = timed_steps(run_step, COS_WARMUP, COS_TIMED, vq_cuda)
+        prof = profile_window(lambda i: run_step(COS_WARMUP + COS_TIMED + i), COS_PROFILED,
+                              "step", "cosine-profile", f"{prec} CPS step, cosine EMA", card)
+    finally:
+        vq_ops.vq_assign_cuda = real_cuda
+    out["cos_steps"] = vq_cuda.launches
+    out["cos_calls"] = seen.count("cosine")
+    check(out["cos_init"] == 6, f"cosine init launched the kernel {out['cos_init']} times")
+    check(per_step == [VQ_PER_STEP] * (COS_WARMUP + COS_TIMED)
+          and out["cos_steps"] == VQ_PER_STEP * n_steps, f"cosine launches per step {per_step}")
+    check(seen == ["cosine"] * (VQ_PER_STEP * n_steps), f"metrics of the launches {set(seen)}")
+    check(all(np.isfinite(losses)), f"non-finite cosine losses {losses}")
+    norms = [float((vq.embedding.norm(dim=-1) - 1.0).abs().max())
+             for m in (state.model_1, state.model_2) for vq in m.core.codebooks
+             if hasattr(vq, "embedding")]
+    check(max(norms) <= 1e-5, f"cosine codebook rows off unit norm by {max(norms)}")
+    out["cos_p50"], out["cos_p90"] = p50_p90(times)
+    out["cos_device_ms"] = prof["device_ms"] if prof else None
+    print(f"[cosine] {prec} CPS step, distance cosine, ema, restart_threshold "
+          f"{vq_cfg.restart_threshold}: init {out['cos_init']} launches, then {out['cos_steps']} "
+          f"in {n_steps} steps, all {out['cos_calls']} through the kernel's cosine branch; "
+          f"codebook rows of unit norm within {max(norms):.2e}; p50 {out['cos_p50']:.3f} ms/step, "
+          f"p90 {out['cos_p90']:.3f} ms over {COS_TIMED} steps (phase 6's {step_p50:.3f} ms); "
+          f"peak memory {peak / 2**30:.2f} GiB"
+          + (f"; device time {prof['device_ms']:.3f} ms/step, vq_assign {prof['vq_ms']:.3f} "
+             f"ms/step" if prof else "") + f" | {card}")
+    probe = copy.deepcopy(state.model_1).train()
+    l_img, target, _ = batches[0]
+    captured = capture_vq_shapes(vector_quantizer, train_pass)
+    check([m for _, _, m in captured] == ["cosine"] * 3, "cosine train pass metrics")
+    out["cos_cases"] = []
+    for i, (x, cb, metric) in enumerate(captured):
+        r = compare_vq(f"cosine-train-stage{3 + i}", x, cb, metric, vq_cuda, vq_assign_reference)
+        out["cos_cases"].append(r)
+        print(f"[cosine-kernel] vq_assign {r['case']} N={r['n']} C={r['c']} K={r['k']} cosine: "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']}; f32 SIMT bound {r['f32_simt_bound_ms']:.4f}); near-tie rows "
+              f"{r['near_ties']} (max f64 score gap {r['max_abs_err']:.3e}) | {card}")
+    del probe, captured, state, step
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+
+    # -- (c) the EMA through the driver, then a resume from its last.ckpt
+    run_cfg = copy.deepcopy(ema_cfg)
+    run_cfg.train.update(data_dir=root, save_dir=os.path.join(root, "runs_ema"), num_epochs=1,
+                         test_every=1, light_snapshots=True)  # as phase 7's resume
+    run_cfg.test.update(data_dir=root, save_dir=os.path.join(root, "test_ema"))
+    steps = DRIVER_UNLABELLED // tc.batch_size
+    history = []
+    vq_cuda.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the unresolved encoder weights, as in phase 7
+        trained = train(run_cfg, history=history)
+    out["ema_driver"] = vq_cuda.launches
+    ckpoints.wait_for_saves()
+    expect = 6 + VQ_PER_STEP * steps + 3 * DRIVER_TEST
+    check(out["ema_driver"] == expect,
+          f"the EMA driver launched the kernel {out['ema_driver']} times, expected {expect}")
+    h = history[0]
+    check(all(np.isfinite(h[k]) for k in LOSS_TERMS) and 0.0 <= h["test_miou"] <= 1.0,
+          f"EMA driver epoch {h}")
+    last = os.path.join(root, "runs_ema", f"{cfg.project_name}_hybrid_0", "ckpoints", "last.ckpt")
+    saved = ckpoints.load_full(last)
+    check(set(saved) == {"model_1", "model_2", "epoch", "batch_idx", "optimizer_1", "optimizer_2"},
+          f"the EMA run's last.ckpt keys {sorted(saved)}")
+    for i, m in ((1, trained.model_1), (2, trained.model_2)):
+        for key, t in codebook_state(m).items():
+            check(torch.equal(saved[f"model_{i}"][key].to(t.device), t),
+                  f"last.ckpt model_{i} {key} differs from the trained state")
+    del trained, saved
+    restored = {}
+    real_restore = cps_module.restore_cps_state
+
+    def recording_restore(st, ck):
+        real_restore(st, ck)
+        restored.update({f"model_{i}/{k}": torch.equal(t, ck[f"model_{i}"][k].to(t.device))
+                         for i, m in ((1, st.model_1), (2, st.model_2))
+                         for k, t in codebook_state(m).items()})
+        return st
+
+    resume_cfg = copy.deepcopy(run_cfg)
+    resume_cfg.train.update(resume=last, num_epochs=2, save_dir=None, test_every=0)
+    history2 = []
+    cps_module.restore_cps_state = recording_restore
+    vq_cuda.launches = 0
+    try:
+        train(resume_cfg, max_steps_per_epoch=1, history=history2)
+    finally:
+        cps_module.restore_cps_state = real_restore
+    out["ema_resume"] = vq_cuda.launches
+    n_keys = 2 * 3 * 3  # two models, three stages, three tensors
+    check(len(restored) == n_keys and all(restored.values()),
+          f"resumed codebook state bitwise as last.ckpt: {restored}")
+    check(out["ema_resume"] == VQ_PER_STEP and [x["epoch"] for x in history2] == [1],
+          f"resumed run: {out['ema_resume']} launches, epochs {[x['epoch'] for x in history2]}")
+    print(f"[ema-driver] train with vq_cfg ema and restart_threshold {vq_cfg.restart_threshold}: "
+          f"1 epoch x {steps} steps, {out['ema_driver']} vq_assign launches (6 + {VQ_PER_STEP} "
+          f"per step + 3 per test image), epoch {h['seconds']:.2f} s, loss {h['loss']:.4f}, test "
+          f"miou {h['test_miou']:.4f}; last.ckpt holds every codebook, cluster_size and "
+          f"embed_avg as trained; the resumed run started with all {n_keys} bitwise as last.ckpt "
+          f"holds them and ran epoch 1 ({out['ema_resume']} launches in 1 step) | {card}")
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+
+    # -- (d) int8 serving of phase 3's weights
+    pred8 = Predictor(model, input_hw=(hw, hw), batch_size=BATCH, quant="int8")
+    pred8(serve_batches[0])  # warm-up
+    torch.cuda.synchronize()
+    vq_cuda.launches = 0
+    labels8 = [pred8(b) for b in serve_batches]
+    times = []
+    for i in range(TIMED_BATCHES):
+        t0 = time.perf_counter()
+        pred8(serve_batches[i % len(serve_batches)])
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["int8_serve"] = vq_cuda.launches
+    forwards = len(serve_batches) + TIMED_BATCHES
+    check(out["int8_serve"] == 3 * forwards,
+          f"int8 serving launched the kernel {out['int8_serve']} times in {forwards} forwards")
+    labels32 = [pred32(b) for b in serve_batches]
+    agree = float(np.mean([np.mean(a == b) for a, b in zip(labels8, labels32)]))
+    check(agree >= 0.8, f"int8 against f32 label agreement {agree}")
+    out["int8_bytes"] = pred8.int8.nbytes()
+    n_params = sum(p.numel() for p in model.parameters())
+    f32_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    out["int8_p50"], out["int8_p90"] = p50_p90(times)
+    out["int8_agree"] = agree
+    print(f"[int8] Predictor(quant='int8', batch_size={BATCH}) of phase 3's weights at {hw}x{hw}: "
+          f"{out['int8_serve']} vq_assign launches in {forwards} forwards (3 each); parameters "
+          f"on the card {out['int8_bytes']} bytes ({len(pred8.int8.quantized)} int8 tensors "
+          f"with their f32 scales, {len(pred8.int8.vectors)} bf16 vectors) against "
+          f"{2 * n_params} bytes as bf16 and {f32_bytes} as phase 3's f32 parameters "
+          f"({out['int8_bytes'] / (2 * n_params):.3f}x bf16); label agreement with the f32 "
+          f"predictor {agree:.6f} (limit 0.8)")
+    print(f"[int8] p50 {out['int8_p50']:.3f} ms/batch, p90 {out['int8_p90']:.3f} ms over "
+          f"{TIMED_BATCHES} batches (phase 3's bf16 p50 {serve_p50:.3f} ms) | {card}")
+    del pred8
+    marks.append(time.perf_counter())
+
+    # -- (e) the subpixel tail
+    sub_cfg = copy.deepcopy(cfg)
+    sub_cfg.model.params.update(subpixel_tail=True)
+    n_steps = SUB_WARMUP + SUB_TIMED + SUB_PROFILED
+    state, step, batches, out["sub_init"] = cps_setup(sub_cfg.model, cfg, n_steps, 17)
+    check(out["sub_init"] == 6, f"subpixel init launched the kernel {out['sub_init']} times")
+    core = state.model_1.core
+    tail = core.decoder.blocks[-1][0].conv
+    check(core.decoder.subpixel and tail.weight.shape[0] == 4 * core.decoder_channels[-1],
+          f"the tail's first conv {tuple(tail.weight.shape)}")
+    vq_cuda.launches = 0
+    times, per_step, losses, peak = timed_steps(run_step, SUB_WARMUP, SUB_TIMED, vq_cuda)
+    prof = profile_window(lambda i: run_step(SUB_WARMUP + SUB_TIMED + i), SUB_PROFILED, "step",
+                          "subpixel-profile", f"{prec} CPS step, subpixel tail", card)
+    out["sub_steps"] = vq_cuda.launches
+    out["sub_device_ms"] = prof["device_ms"] if prof else None
+    check(per_step == [VQ_PER_STEP] * (SUB_WARMUP + SUB_TIMED)
+          and out["sub_steps"] == VQ_PER_STEP * n_steps, f"subpixel launches per step {per_step}")
+    terms = {k: float(run_step.metrics[k]) for k in LOSS_TERMS}
+    check(all(np.isfinite(losses)) and all(np.isfinite(list(terms.values()))),
+          f"subpixel losses {losses} {terms}")
+    pred = Predictor(state.model_1, input_hw=(hw, hw), batch_size=BATCH)
+    vq_cuda.launches = 0
+    labels = pred(serve_batches[0])
+    out["sub_serve"] = vq_cuda.launches
+    check(out["sub_serve"] == 3 and labels.shape == (BATCH, hw, hw)
+          and int(labels.max()) < int(cfg.num_classes),
+          f"subpixel serving: {out['sub_serve']} launches, labels {labels.shape}")
+    out["sub_p50"], out["sub_p90"] = p50_p90(times)
+    print(f"[subpixel] model.params.subpixel_tail: the final block at {hw // 4}x{hw // 4}, its "
+          f"first conv {tail.weight.shape[1]} -> {tail.weight.shape[0]} channels; init "
+          f"{out['sub_init']} launches, {n_steps} {prec} CPS steps at {VQ_PER_STEP}, finite "
+          f"losses " + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
+          + f"; p50 {out['sub_p50']:.3f} ms/step, p90 {out['sub_p90']:.3f} ms over {SUB_TIMED} "
+          f"steps (phase 6's {step_p50:.3f} ms); peak memory {peak / 2**30:.2f} GiB"
+          + (f"; device time {prof['device_ms']:.3f} ms/step" if prof else "")
+          + f"; one served batch of {BATCH}: {out['sub_serve']} launches | {card}")
+    del pred, state, step
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    out["seconds"] = [b - a for a, b in zip(marks, marks[1:])]
+    print("[ema] phase 15 parts (a)-(e): " + ", ".join(f"{s:.1f} s" for s in out["seconds"]))
+    return out
+
+
 def _no_grad_train_pass(model, x):
     """One train-mode forward of ``model`` on ``x`` without gradients, on a
     copy (the running statistics of ``model`` stay)."""
@@ -2949,6 +3377,7 @@ def main() -> int:
     seen = sorted(int(v) for v in np.unique(np.concatenate([lab.ravel() for lab in streamed])))
     p50 = statistics.median(times)
     p90 = statistics.quantiles(times, n=10, method="inclusive")[-1]
+    serve_p50 = p50
     print(f"[serve] {forwards} forwards, {launches} vq_assign launches (3 per forward); "
           f"classes seen {seen}; predict_stream vs sequential label agreement {agree}")
     print(f"[serve] bf16, batch {BATCH}, {hw}x{hw}, one call at a time: p50 {p50:.3f} ms/batch "
@@ -3071,10 +3500,15 @@ def main() -> int:
         t_extra = time.perf_counter()
         extra = crf_accum_sweep_phase(cfg, card, vq_cuda, root, train["p50"])
         print(f"[crf] phase 14 in {time.perf_counter() - t_extra:.1f} s | {card}")
+        # -- 15. VQ EMA and restart, cosine, int8 serving, the subpixel tail
+        t_ema = time.perf_counter()
+        ema = ema_phase(cfg, card, vq_cuda, vq_assign_reference, vector_quantizer, root, model,
+                        pred32, batches, serve_p50, train["p50"])
+        print(f"[ema] phase 15 in {time.perf_counter() - t_ema:.1f} s | {card}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # -- 15. result lines -----------------------------------------------------------
+    # -- 16. result lines -----------------------------------------------------------
     main_path = results[:len(captured)]  # the three shapes the serving forward gave
     shape_keys = ("case", "n", "c", "k", "ms", "plain_ms", "bound_ms", "f32_simt_bound_ms",
                   "near_ties", "max_abs_err")
@@ -3086,7 +3520,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in results + train["cases"] + driver["cases"]
                            + [c for name, _ in SUP_CONFIGS for c in sup[name]["cases"]]
-                           + plain["cases"] + rest["cases"]),
+                           + plain["cases"] + rest["cases"] + ema["cos_cases"]),
         # per forward: the three main-path shapes summed
         "ms": sum(r["ms"] for r in main_path),
         "plain_ms": sum(r["plain_ms"] for r in main_path),
@@ -3211,6 +3645,26 @@ def main() -> int:
         "accum_update_p50_ms": extra["accum_update_p50"],
         "accum_micro_p50_ms": extra["accum_micro_p50"],
         "sweep_s_per_trial": extra["sweep_s_per_trial"],
+        # phase 15: the flagship step with the EMA update and restart
+        # (init, warm-up, timed and profiled steps), the same step in
+        # cosine (the cosine branch's first launches on a training path),
+        # the EMA driver epoch and its resume, int8 serving and the
+        # subpixel tail; the cosine branch at the three training shapes
+        "launches_ema": {k: ema[k] for k in ("ema_init", "ema_steps", "ema_driver",
+                                             "ema_resume", "int8_serve", "sub_init",
+                                             "sub_steps", "sub_serve")},
+        "launches_cosine": {"init": ema["cos_init"], "steps": ema["cos_steps"],
+                            "cosine_branch": ema["cos_calls"]},
+        "cosine_train_shapes": [{key: r[key] for key in shape_keys} for r in ema["cos_cases"]],
+        "cosine_ms_per_step": 6 * sum(r["ms"] for r in ema["cos_cases"]),
+        "cosine_plain_ms_per_step": 6 * sum(r["plain_ms"] for r in ema["cos_cases"]),
+        "cosine_bound_ms_per_step": 6 * sum(r["bound_ms"] for r in ema["cos_cases"]),
+        "ema_update_rel_err": max(max(r["errs"].values()) for r in ema["ema_checks"]),
+        "ema_update_ms_per_step": ema["ema_update_ms_per_step"],
+        "ema_step_p50_ms": ema["ema_p50"], "cosine_step_p50_ms": ema["cos_p50"],
+        "int8_serve_p50_ms": ema["int8_p50"], "int8_param_bytes": ema["int8_bytes"],
+        "int8_label_agreement": ema["int8_agree"], "subpixel_step_p50_ms": ema["sub_p50"],
+        "step_device_ms": {k: ema[f"{k}_device_ms"] for k in ("ema", "cos", "sub")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

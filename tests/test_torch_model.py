@@ -159,8 +159,9 @@ def test_codebook_init_phase_is_seeded_and_uses_the_features(flagship):
 def test_what_is_not_ported_raises():
     with pytest.raises(KeyError):  # every network of the JAX registry is ported
         make_model({"name": "no_such_network", "params": {}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VectorQuantizer(8, 4, ema=True)
+    VectorQuantizer(8, 4, ema=True, restart_threshold=0.5)  # ported: builds
+    with pytest.raises(ValueError, match="restart_threshold requires ema"):
+        VectorQuantizer(8, 4, restart_threshold=0.5)
     with pytest.raises(ValueError):
         VectorQuantizer(8, 4, distance="manhattan")
     with pytest.raises(ValueError):

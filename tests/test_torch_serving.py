@@ -105,8 +105,7 @@ def test_unported_options_and_missing_card_raise(setup, tmp_path):
     _, _, model, _ = setup
     with pytest.raises(ValueError):
         _port(model, quant="int4")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(model, quant="int8")
+    assert _port(model, quant="int8").int8 is not None  # ported: builds
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(model, mesh=object())
     if not torch.cuda.is_available():

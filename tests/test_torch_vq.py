@@ -303,3 +303,44 @@ def test_cps_step_on_the_kernel_matches_the_plain_vq(monkeypatch):
     for key in ("loss", "cps_loss", "sup_loss_1", "sup_loss_2", "commitment_loss",
                 "prototype_loss"):
         torch.testing.assert_close(kernel[key], plain[key], rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+@pytest.mark.parametrize("n,c", [(12544, 512), (3136, 1024), (784, 2048)])
+def test_ema_update_on_the_kernel_matches_the_plain_path(n, c, metric):
+    """The flagship's training shapes (K=512): one EMA update and restart
+    from the kernel's idx and counts against one from the plain version's,
+    within 1e-5 relative L2 (``index_add_`` sums with atomics on the card);
+    half the codes restart.  Rows where the two versions chose different codes (at most 2, f32
+    near-ties) take the kernel's code in the plain run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode (run on the card)")
+    from vq_seg_tpu_torch.models.modules.vector_quantizer import VectorQuantizer
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(n, c, device="cuda", generator=g)
+    vq = VectorQuantizer(c, 512, kmeans_init=True, ema=True, restart_threshold=0.5,
+                         distance=metric).cuda()
+    vq.init_codebook_(x[:n // 2].T[None, :, :, None].contiguous(),
+                      torch.Generator().manual_seed(0))
+    # the upper half duplicates the lower: it never wins a row (ties go to
+    # the lower code), so its codes fall below the threshold and restart
+    vq.embedding[256:] = vq.embedding[:256]
+    vq.cluster_size.mul_(0.5)  # an unused code falls to 0.4, below the threshold
+    rows = tkm.l2norm(x) if metric == "cosine" else x
+    cb = (tkm.l2norm(vq.embedding) if metric == "cosine" else vq.embedding).clone()
+    i_k, q_k, c_k = vq_cuda.vq_assign_cuda(rows, cb, metric)
+    i_r, _, _ = tvq.vq_assign_reference(rows, cb, metric)
+    differ = torch.nonzero(i_k != i_r).flatten()
+    assert differ.numel() <= 2
+    i_r[differ] = i_k[differ]
+    c_r = torch.bincount(i_r.long(), minlength=512).to(torch.int32)
+    assert torch.equal(c_k, c_r)
+    plain = copy.deepcopy(vq)
+    vq.ema_update_(rows, i_k, q_k, c_k)
+    plain.ema_update_(rows, i_r, cb.index_select(0, i_r.long()), c_r)
+    assert int((plain.cluster_size == 1.0).sum()) >= 256
+    for key in ("embedding", "cluster_size", "embed_avg"):
+        a, b = getattr(vq, key).double(), getattr(plain, key).double()
+        assert float((a - b).norm() / b.norm()) <= 1e-5, key

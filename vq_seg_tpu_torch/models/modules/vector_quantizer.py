@@ -4,7 +4,17 @@
   * ``VectorQuantizer``: one codebook over the channel dim of an NCHW
     feature map.  The codebook is a non-trainable buffer: the STE detaches
     the code path and the commitment loss detaches the quantized value, so
-    it receives no gradient and stays at its k-means init.
+    it receives no gradient and stays at its k-means init unless ``ema``.
+  * ``ema=True`` (``vq_cfg.ema``) updates the codebook after each train
+    forward that runs inside ``ema_updates()``, the counterpart of the JAX
+    package applying with ``mutable=["codebook"]``: cluster sizes (the
+    assignment's counts) and per-code feature sums are blended with
+    ``decay`` and the codebook becomes their Laplace-smoothed running mean.
+    The forward's own assignment, STE and commitment use the codebook from
+    before the update.  ``restart_threshold > 0`` then reseeds every code
+    whose cluster size fell below it with a row of the batch: code j takes
+    the row of rank ``j % min(K, N)`` in the residuals to the pre-update
+    codes, largest first, ties to the lower row.
   * the k-means init is an explicit phase, ``init_codebook_(x, generator)``,
     run once on a real batch: alone (serving, eval-mode features) or inside
     a forward with ``init_codebook=True`` (training, on the features of a
@@ -19,7 +29,9 @@ code usage %).
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -40,6 +52,25 @@ class VQIdentity(nn.Module):
         pass
 
 
+_gate = threading.local()
+
+
+@contextlib.contextmanager
+def ema_updates():
+    """Inside this context, train forwards of ``VectorQuantizer(ema=True)``
+    (not the init phase) update the codebook and its EMA state.  The train
+    steps whose JAX counterparts make the ``codebook`` collection mutable
+    enter it: the flagship CPS step's train passes, the supervised and
+    self-supervised steps and the init phases; the ``variants.py`` steps do
+    not, so their codebooks stay frozen, as in the JAX package."""
+    before = getattr(_gate, "on", False)
+    _gate.on = True
+    try:
+        yield
+    finally:
+        _gate.on = before
+
+
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """NCHW -> (B*H*W, C) rows in (b, h, w) order."""
     return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
@@ -54,10 +85,10 @@ class VectorQuantizer(nn.Module):
         super().__init__()
         if distance not in METRICS:
             raise ValueError(f"unknown distance {distance}")
-        if ema or restart_threshold > 0:
-            raise NotImplementedError(
-                "the EMA codebook update and dead-code restart are not ported yet "
-                "(ROADMAP.md, queue 1, 'VQ EMA and restart')")
+        if restart_threshold > 0 and not ema:
+            raise ValueError(
+                "restart_threshold requires ema=True (the EMA cluster size is the usage "
+                "signal that marks a code dead)")
         self.dim = dim
         self.num_embeddings = num_embeddings
         self.edim = embedding_dim if embedding_dim is not None else dim
@@ -65,11 +96,18 @@ class VectorQuantizer(nn.Module):
         self.kmeans_iters = kmeans_iters
         self.distance = distance
         self.commitment_weight = commitment_weight
+        self.decay = decay
+        self.eps = eps
+        self.ema = ema
+        self.restart_threshold = restart_threshold
         k = num_embeddings
         # uniform in [-1/K, 1/K]; with kmeans_init a placeholder until the
         # init phase overwrites it
         cb = torch.empty(k, self.edim).uniform_(-1.0 / k, 1.0 / k, generator=generator)
         self.register_buffer("embedding", cb)
+        if ema:  # only then, so that the state_dict of a frozen codebook keeps its keys
+            self.register_buffer("cluster_size", torch.ones(k))
+            self.register_buffer("embed_avg", cb.clone())
 
     @torch.no_grad()
     def init_codebook_(self, x: torch.Tensor, generator: torch.Generator):
@@ -83,12 +121,48 @@ class VectorQuantizer(nn.Module):
             means, _ = kmeans(feats, self.num_embeddings, self.kmeans_iters,
                               use_cosine_sim=self.distance == "cosine", generator=generator)
         self.embedding.copy_(means)
+        if self.ema:  # the running mean is the k-means mean at unit mass
+            self.cluster_size.fill_(1.0)
+            self.embed_avg.copy_(means)
+
+    @torch.no_grad()
+    def ema_update_(self, feats: torch.Tensor, idx: torch.Tensor, quantized: torch.Tensor,
+                    counts: torch.Tensor):
+        """One EMA step (and restart) from a forward's rows ``feats`` (N, C)
+        (l2-normalised for cosine), their codes ``idx``, the pre-update code
+        rows ``quantized`` and the assignment's ``counts``."""
+        k = self.num_embeddings
+        feats = feats.detach().float()
+        # index_add_ on the card sums with atomics, in no fixed order
+        sums = torch.zeros_like(self.embed_avg).index_add_(0, idx.long(), feats)
+        d = self.decay
+        new_cs = d * self.cluster_size + (1.0 - d) * counts.float()
+        new_ea = d * self.embed_avg + (1.0 - d) * sums
+        n = torch.sum(new_cs)
+        smoothed = (new_cs + self.eps) / (n + k * self.eps) * n
+        new_cb = new_ea / smoothed[:, None]
+        if self.distance == "cosine":
+            new_cb = l2norm(new_cb)
+        if self.restart_threshold > 0:
+            dead = new_cs < self.restart_threshold
+            err = torch.sum((feats - quantized) ** 2, dim=-1)
+            # a stable sort puts the lower row first among equal residuals,
+            # as the JAX package's top_k does; torch.topk promises no order
+            top = torch.sort(err, descending=True, stable=True).indices[:min(k, err.shape[0])]
+            cand = feats[top[torch.arange(k, device=top.device) % top.shape[0]]]
+            new_cb = torch.where(dead[:, None], cand, new_cb)
+            new_ea = torch.where(dead[:, None], cand, new_ea)
+            new_cs = torch.where(dead, torch.ones_like(new_cs), new_cs)
+        self.cluster_size.copy_(new_cs)
+        self.embed_avg.copy_(new_ea)
+        self.embedding.copy_(new_cb)
 
     def forward(self, x: torch.Tensor, train: bool = False, init_codebook: bool = False,
                 generator: Optional[torch.Generator] = None):
         """``init_codebook=True`` first runs the init phase on this ``x``
         (the features of the forward's own BN mode), then quantizes with the
-        new codebook."""
+        new codebook.  A train forward inside ``ema_updates()`` other than
+        the init phase updates an ``ema`` codebook after quantizing."""
         b, _, h, w = x.shape
         if init_codebook:
             self.init_codebook_(x.detach(), generator)
@@ -103,6 +177,8 @@ class VectorQuantizer(nn.Module):
             idx, quantized, counts = vq_assign(flat.contiguous(), cb.contiguous(),
                                                self.distance)
             usage = code_usage_percent(counts)
+            if train and self.ema and not init_codebook and getattr(_gate, "on", False):
+                self.ema_update_(flat, idx, quantized, counts)
             quantized = quantized.reshape(b, h, w, self.edim).permute(0, 3, 1, 2)
             loss = x.new_zeros(())
             if train:

@@ -93,7 +93,7 @@ class VQUnetCore(nn.Module):
                  padding_mode: str = "zeros", bn_eps: float = 1e-5, bn_momentum: float = 0.1,
                  generator: Optional[torch.Generator] = None, pre_vq: Optional[str] = None,
                  decoder_cca: Optional[Sequence[bool]] = None, stem: str = "default",
-                 mixer_depth: int = 3):
+                 mixer_depth: int = 3, subpixel_tail: bool = False):
         super().__init__()
         if pre_vq not in PRE_VQ:
             raise ValueError(f"pre_vq must be one of {PRE_VQ}, got {pre_vq!r}")
@@ -120,7 +120,8 @@ class VQUnetCore(nn.Module):
                 self.add_module(f"drsam_{i}", DRSAM(stage_ch[i], generator=generator))
         self.decoder_channels = _decoder_channels(enc_ch, decoder_channels)
         self.decoder = UnetDecoder(enc_ch, self.decoder_channels, bn_eps, bn_momentum,
-                                   cca=decoder_cca, generator=generator)
+                                   cca=decoder_cca, subpixel_tail=subpixel_tail,
+                                   generator=generator)
 
     def _features(self, x):
         """The encoder stage outputs (without the input) after the pre-VQ
@@ -239,7 +240,8 @@ class VQUnet_v1(nn.Module):
 class _PTNet(nn.Module):
     """Skeleton of the prototype-loss U-Nets: the reflect-padded trunk, a
     head chosen by ``head_kernel``/``head_bias``/``head_layers`` and the
-    prototype loss chosen by ``proto_kind`` (None: none).  ``encoder_weights`` names
+    prototype loss chosen by ``proto_kind`` (None: none); ``subpixel_tail``
+    reaches the decoder (``UnetDecoder``).  ``encoder_weights`` names
     pretrained weights that are never fetched here: the weights come from a
     checkpoint or from the trainer's state factory."""
 
@@ -253,14 +255,14 @@ class _PTNet(nn.Module):
                  encoder_weights: Optional[str] = None, in_channels: int = 3,
                  decoder_channels: Optional[Sequence[int]] = None, depth: int = 5,
                  upsampling: int = 2, pt_init: str = "kmeans", t: float = 0.1,
-                 bn_eps: float = 1e-5, bn_momentum: float = 0.1,
+                 bn_eps: float = 1e-5, bn_momentum: float = 0.1, subpixel_tail: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_classes = num_classes
         self.upsampling = upsampling
         self.core = VQUnetCore(encoder_name, vq_cfg, in_channels, decoder_channels, depth,
                                padding_mode="reflect", bn_eps=bn_eps, bn_momentum=bn_momentum,
-                               generator=generator)
+                               generator=generator, subpixel_tail=subpixel_tail)
         dec_ch = self.core.decoder_channels[-1]
         self.segmentation_head = self._head(dec_ch, num_classes, generator)
         self.prototype_loss = self._proto(num_classes, dec_ch, pt_init, use_feature, margin, scale,

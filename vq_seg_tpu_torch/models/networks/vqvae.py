@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..encoders import make_encoder
 from ..layers import ConvPad, resize_bilinear, torch_conv_default
-from ..modules.vector_quantizer import VectorQuantizer, _VQ_ARGS, make_vq_module, quantize_stages
+from ..modules.vector_quantizer import VectorQuantizer, make_vq_module, quantize_stages
 from . import register
 
 
@@ -116,6 +116,9 @@ class VQVAEv2(nn.Module):
         return self.decoder(torch.cat(feats, dim=1)), commit, usage
 
 
+_V1_VQ_ARGS = ("distance", "kmeans_init", "kmeans_iters", "commitment_weight", "decay", "eps")
+
+
 @register("vqvaev1")
 class VQVAEv1(nn.Module):
     """The deepest stage only: one ``codebook`` (the last entry of a
@@ -133,8 +136,10 @@ class VQVAEv1(nn.Module):
         cfg = dict(vq_cfg)
         k = cfg.pop("num_embeddings")
         k = k[-1] if isinstance(k, (list, tuple)) else k
+        # the JAX package passes these six knobs only: under ``ema`` (or a
+        # restart threshold) its codebook stays frozen, and so does this one
         self.codebook = VectorQuantizer(enc_ch[-1], k, generator=generator,
-                                        **{n: v for n, v in cfg.items() if n in _VQ_ARGS})
+                                        **{n: v for n, v in cfg.items() if n in _V1_VQ_ARGS})
         self.decoder = VQVAEDecoder(enc_ch[-1], out_channels, hidden_channels, n_resblocks,
                                     n_res_channels, stride, generator)
 

@@ -53,6 +53,7 @@ from ..device import resolve_device
 from ..losses import cross_entropy_loss, make_loss
 from ..metrics.measurement import confusion_matrix, miou
 from ..models.layers import resize_bilinear
+from ..models.modules.vector_quantizer import ema_updates
 from ..models.networks import make_model
 from ..utils import visualize
 from ..utils.ckpoints import (fetch_ckpt_tree, latest_ckpt, load_full, save_ckpoints, save_tar,
@@ -204,8 +205,8 @@ def cps_init_phase(state: CPSTrainState, l_img: torch.Tensor, l_target: torch.Te
         generator = torch.Generator().manual_seed(2 * seed + i)
         was_training = model.training
         model.train()
-        with torch.no_grad(), torch.autocast(l_img.device.type, dtype=torch.bfloat16,
-                                             enabled=half):
+        with torch.no_grad(), ema_updates(), torch.autocast(l_img.device.type,
+                                                            dtype=torch.bfloat16, enabled=half):
             model(l_img, l_target, extra, train=True, init_codebook=True, init_protos=True,
                   generator=generator)
         model.train(was_training)
@@ -240,7 +241,9 @@ def make_cps_train_step(dice_loss, *, num_classes: int, confidence_threshold: fl
                 pseudo_2_score = m2(ul_img)[0]
             m1.train()
             m2.train()
-            with torch.autocast(device_type, dtype=torch.bfloat16, enabled=half):
+            # an ema codebook updates after each train pass: the next pass of
+            # the same model quantizes with it (sup 1, sup 2, unsup 1, unsup 2)
+            with ema_updates(), torch.autocast(device_type, dtype=torch.bfloat16, enabled=half):
                 pred_sup_1, c_l1, u_l1, pl_l1 = m1(l_img, l_target, th, train=True)
                 pred_sup_2, c_l2, u_l2, pl_l2 = m2(l_img, l_target, th, train=True)
                 pred_ul_1, c_ul1, u_ul1, pl_ul1 = m1(ul_img, pseudo_2_score, th, train=True)

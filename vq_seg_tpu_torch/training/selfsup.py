@@ -5,8 +5,8 @@ One step: a train-mode forward of the VQ-VAE, ``recon_loss`` = the MSE
 between the reconstruction and the input (bilinearly resized to the
 reconstruction where they differ), ``loss = recon_loss + commitment``,
 one Adam update at ``schedule(step)``.  The codebooks are buffers set by
-the k-means init phase and are not trained (the EMA update is not ported:
-``VectorQuantizer`` raises on ``ema``, ROADMAP.md, queue 1).  f32 under
+the k-means init phase; under ``vq_cfg.ema`` the train forward updates
+them (``ema_updates``), as the JAX step does.  f32 under
 ``device.full_f32``, as the JAX driver runs it; ``half`` is not read.
 
 ``train`` writes the encoder, codebooks and decoder every epoch with
@@ -24,6 +24,7 @@ import torch
 from ..data import FolderDataset, Loader
 from ..device import full_f32, resolve_device
 from ..models.layers import resize_bilinear
+from ..models.modules.vector_quantizer import ema_updates
 from ..utils.ckpoints import save_vqvae, wait_for_saves
 from ..utils.seed import seed_everything
 from ..utils.train_tools import set_lr
@@ -43,7 +44,8 @@ def make_selfsup_train_step():
         was_training = model.training
         model.train()
         try:
-            recon, commit, usage = model(img, train=True)
+            with ema_updates():
+                recon, commit, usage = model(img, train=True)
         finally:
             model.train(was_training)
         target = img if img.shape[-2:] == recon.shape[-2:] else resize_bilinear(

@@ -29,6 +29,7 @@ from ..data import BaseDataset, Loader, NormalizedDataset, OBIADataset
 from ..device import resolve_device
 from ..losses import cross_entropy_loss, make_loss
 from ..metrics.measurement import confusion_matrix, miou
+from ..models.modules.vector_quantizer import ema_updates
 from ..models.networks import make_model
 from ..utils.ckpoints import save_tree, wait_for_saves
 from ..utils.logger import Logger
@@ -78,8 +79,8 @@ def init_phase(state: TrainState, args, *, seed: int = 0, half: bool = False) ->
     kw = {k: True for k in ("init_codebook", "init_protos") if k in offered}
     was_training = model.training
     model.train()
-    with torch.no_grad(), torch.autocast(args[0].device.type, dtype=torch.bfloat16,
-                                         enabled=half):
+    with torch.no_grad(), ema_updates(), torch.autocast(args[0].device.type,
+                                                        dtype=torch.bfloat16, enabled=half):
         model(*args, train=True, generator=torch.Generator().manual_seed(seed), **kw)
     model.train(was_training)
     return state
@@ -126,7 +127,8 @@ def make_sup_train_step(dice_loss, *, num_classes: int, ce_weight=None,
         model.train()
         kw = {} if dropout is None else {"dropout": dropout}
         try:
-            with torch.autocast(img.device.type, dtype=torch.bfloat16, enabled=half):
+            with ema_updates(), torch.autocast(img.device.type, dtype=torch.bfloat16,
+                                               enabled=half):
                 out = model(*forward_args(forward_mode, img, target, extra), train=True, **kw)
         finally:
             model.train(was_training)

@@ -27,6 +27,7 @@ from ..data import Loader, SalientDataset
 from ..data.augmentations import make_cutout_mask
 from ..device import full_f32, resolve_device
 from ..losses import make_loss
+from ..models.modules.vector_quantizer import ema_updates
 from ..utils.ckpoints import (fetch_ckpt_tree, load_vqvae_pretrained, save_ckpoints,
                               save_tree, wait_for_saves)
 from ..utils.logger import Logger
@@ -295,7 +296,9 @@ def vqpt_init_phase(state: CPSTrainState, l_img: torch.Tensor, l_target: torch.T
     for seed, model in enumerate((state.model_1, state.model_2)):
         was_training = model.training
         model.train()
-        with torch.no_grad():
+        # the JAX drivers apply with "codebook" mutable: without the k-means
+        # (pretrained codebooks) an ema codebook takes one update here
+        with torch.no_grad(), ema_updates():
             model(l_img, l_target, *extra, train=True, init_codebook=init_codebook,
                   generator=torch.Generator().manual_seed(seed), **kw)
         model.train(was_training)

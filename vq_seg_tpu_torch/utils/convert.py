@@ -17,7 +17,8 @@ The tree comes as nested dicts of numpy arrays (the caller does
     ``vqreptunetdouble1x1``, the port's ``segmentation_head.{0,1}``); the
     angular heads of ``vqashunet(v2)`` hold ``ConvPad_0`` and their class
     ``embedding`` (the port's ``segmentation_head.{conv,embedding}``);
-  * codebooks ``codebook/core/VectorQuantizer_{n}/embedding`` are numbered
+  * codebooks ``codebook/core/VectorQuantizer_{n}/embedding`` (with
+    ``cluster_size`` and ``embed_avg`` under ``vq_cfg.ema``) are numbered
     over the VQ stages only, so ``num_embeddings`` (the model's
     ``vq_cfg.num_embeddings``; None or all zeros for ``unet``) says which
     stage each one belongs to;
@@ -257,15 +258,23 @@ def _decoder(sd: dict, prefix: str, dp: Mapping, ds: Mapping):
 
 
 def _codebooks(sd: dict, prefix: str, tree: Mapping, num_embeddings):
-    """``VectorQuantizer_{n}/embedding`` of ``tree``, numbered over the VQ
-    stages only -> ``{prefix}{stage}.embedding``."""
+    """``VectorQuantizer_{n}/{embedding, cluster_size, embed_avg}`` of
+    ``tree``, numbered over the VQ stages only -> ``{prefix}{stage}.*``."""
     found = [k for k in tree if k.startswith("VectorQuantizer_")]
     stages = [i for i, k in enumerate(num_embeddings or ()) if k > 0]
     if len(found) != len(stages):
         raise ValueError(f"{len(found)} codebooks in the tree, but num_embeddings "
                          f"{list(num_embeddings)} has {len(stages)} VQ stages")
     for n, stage in enumerate(stages):
-        sd[f"{prefix}{stage}.embedding"] = _t(tree[f"VectorQuantizer_{n}"]["embedding"])
+        _vq(sd, f"{prefix}{stage}", tree[f"VectorQuantizer_{n}"])
+
+
+def _vq(sd: dict, name: str, p: Mapping):
+    """One codebook: its ``embedding`` and, under ``vq_cfg.ema``, its
+    ``cluster_size`` and ``embed_avg``."""
+    for key in ("embedding", "cluster_size", "embed_avg"):
+        if key in p:
+            sd[f"{name}.{key}"] = _t(p[key])
 
 
 # the children of the JAX package's VQUnetCore other than encoder and
@@ -314,7 +323,7 @@ def _top_level(sd: dict, params: Mapping, stats: Mapping, codebooks: Mapping,
             raise ValueError(f"no mapping for params/{key}")
     if "encoder" in params:
         if "codebook" in codebooks:  # vqvaev1's one codebook
-            sd["codebook.embedding"] = _t(codebooks["codebook"]["embedding"])
+            _vq(sd, "codebook", codebooks["codebook"])
         else:  # none for the DeepLab networks (num_embeddings None)
             _codebooks(sd, "codebooks.", codebooks, num_embeddings)
 

@@ -1,8 +1,8 @@
 """Experiment logging (reference utils/logger.py:7-134), the port's copy of
 the JAX package's ``utils/logger.py``.
 
-``BaseLogger``/``Logger``/``TestLogger``, ``list_to_separate_log`` and
-``dict_to_table_log``.  wandb is imported lazily; where it is not
+``BaseLogger``/``Logger``/``TestLogger``, ``list_to_separate_log``,
+``dict_to_table_log`` and ``make_img_table``.  wandb is imported lazily; where it is not
 installed, or its ``init`` fails, a logger with an ``offline_dir`` appends
 one JSON line of scalars per ``logging`` call to
 ``{offline_dir}/{logger_name}.jsonl``.
@@ -122,3 +122,14 @@ def dict_to_table_log(d: dict):
     if wandb is None:
         return d
     return wandb.Table(data=[list(d.values())], columns=list(d.keys()))
+
+
+def make_img_table(filename_list, img_list_1, img_list_2, columns):
+    """A wandb table of (filename, image, image) rows, or None without
+    wandb."""
+    wandb = _try_wandb()
+    if wandb is None:
+        return None
+    data = [[fn, wandb.Image(i1, mode="RGB"), wandb.Image(i2, mode="RGB")]
+            for fn, i1, i2 in zip(filename_list, img_list_1, img_list_2)]
+    return wandb.Table(data=data, columns=columns)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -22,6 +22,15 @@ DETAIL_COLORMAP = np.array([
     [0, 0, 0], [0, 0, 1], [1, 0, 0],                                               # TP: bg/weed/crop
     [0.5, 0.5, 0.5], [230 / 255, 145 / 255, 56 / 255], [1, 217 / 255, 102 / 255],  # FP
 ])
+
+
+def gray_to_rgb(img: np.ndarray) -> np.ndarray:
+    """(N,H,W) or (N,H,W,1) -> (N,H,W,3) (visualize.py:8-15)."""
+    if img.ndim == 3:
+        return np.stack([img] * 3, axis=-1)
+    if img.ndim == 4:
+        return np.concatenate([img] * 3, axis=-1)
+    raise NotImplementedError("implemented for 3- and 4-d arrays only")
 
 
 def pred_to_colormap(pred: np.ndarray, colormap: np.ndarray = DEFAULT_COLORMAP):
@@ -81,6 +90,19 @@ def make_example_img(l_input, target, pred, ul_input, ul_pred,
     return _resize_half(np.concatenate((l_cat, interval, ul_mix), axis=1), resize_factor)
 
 
+def make_selfsup_example(target, recon):
+    """[target|recon] strip for VQ-VAE pretraining (visualize.py:170-173)."""
+    return batch_to_grid(np.concatenate((target, recon), axis=2))
+
+
+def make_test_img(inp, pred, target, colormap: np.ndarray = DEFAULT_COLORMAP):
+    """(visualize.py:176-186): ([input|target|pred], the input/pred blend)."""
+    p = batch_to_grid(pred_to_colormap(pred, colormap))
+    i = batch_to_grid(inp)
+    t = batch_to_grid(target_to_colormap(target, colormap))
+    return np.concatenate((i, t, p), axis=1), mix_input_pred(i, p)
+
+
 def make_test_detailed_img(inp, pred, target, colormap: np.ndarray = DEFAULT_COLORMAP):
     """TP/FP variant (visualize.py:188-194)."""
     p = batch_to_grid(pred_to_detailed_colormap(pred, target))
@@ -114,3 +136,8 @@ def write_png(path: str, arr: np.ndarray, level: int = 6):
 def save_img(img_dir: str, filename: str, img: np.ndarray):
     """A float image in [0, 1] (values outside are clipped) as uint8 PNG."""
     write_png(os.path.join(img_dir, filename), (np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+
+def save_img_list(img_dir: str, filename_list: List[str], img_list: List[np.ndarray]):
+    for img, filename in zip(img_list, filename_list):
+        save_img(img_dir, filename, img)
