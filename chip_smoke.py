@@ -35,10 +35,10 @@ check does not hold:
    ``cps_init_phase`` -> ``make_cps_train_step``) with the config's loss
    weights, criterion, LR schedule, ``init_weights`` and bf16 autocast,
    batch 4 labeled + 4 unlabeled, random weights from a seed (pretrained
-   encoders cannot be fetched).  The init phase, then 2 warm-up and 5
+   encoders cannot be fetched).  The init phase, then 2 warm-up and 3
    timed steps on distinct synthetic batches, each ended by a fetch of the
    loss: p50/p90 ms per step, img/s (8 images per step), every loss term,
-   the peak memory and a profile of 2 more steps.  The kernel's launch
+   the peak memory and a profile of 1 more step.  The kernel's launch
    count must be 18 per step (6 forwards x 3 VQ stages); losses finite,
    parameters and BN running stats changed, codebooks bitwise unchanged.
    The kernel is held against its plain version at the three shapes of a
@@ -70,7 +70,7 @@ check does not hold:
    PyTorch's default TF32 flags (cuDNN may use TF32), so the times are
    those of the trainer's own setting: every forward of the step must see
    cuDNN's and cuBLAS's TF32 off (``device.full_f32``).  The init phase (6
-   launches), 1 warm-up, 3 timed and 1 profiled step (18 launches
+   launches), 1 warm-up, 2 timed and 1 profiled step (18 launches
    each), each ended by a loss fetch: p50/p90 ms, img/s, peak memory,
    device time per step; parameters changed except the detached
    prototype tables, codebooks unchanged.  One f32 step from the
@@ -87,7 +87,7 @@ check does not hold:
 9. the supervised baseline at full width, bf16 as the configs set it:
    ``only_sup_kmeans.json`` (``vqunet_v2``, 512x512, batch 4: 3 launches
    at init and 3 per step) and ``CWFID_Unet.json`` (``unet``, batch 8: no
-   launch), each 2 warm-up, 4 timed and 2 profiled steps: p50, peak
+   launch), each 1 warm-up, 3 timed and 1 profiled step: p50, peak
    memory, device time per step; the kernel against its plain version at
    ``vqunet_v2``'s shapes.  Then the sup driver for one epoch on the
    tree: 3 + 3 per step launches and ``last.ckpt`` holding exactly
@@ -96,7 +96,7 @@ check does not hold:
    f32 as the JAX drivers run them, under PyTorch's default TF32 flags
    (every forward must see TF32 off): ``config/vqcanet.json`` (resnet50,
    CCA at the bottleneck, K=512, 512², batch 4+4) through
-   ``plain_init_phase`` (6 launches), 1 warm-up, 3 timed and 1 profiled
+   ``plain_init_phase`` (6 launches), 1 warm-up, 2 timed and 1 profiled
    steps (12 launches each): p50/p90, peak memory, device time per step;
    ``vqcanet_obj_loss.json`` likewise with 1 warm-up and 2 timed steps;
    each the kernel step against the plain VQ (loss terms within 1e-4,
@@ -113,7 +113,7 @@ check does not hold:
    as the JAX drivers run them, under PyTorch's default TF32 flags (every
    forward must see TF32 off): ``config/vq_pt_unet.json`` (``vqptunet``,
    resnet50, K=512, 448², batch 4+4) through ``vqpt_init_phase`` (6
-   launches), 1 warm-up, 3 timed and 1 profiled step (18 launches each:
+   launches), 1 warm-up, 2 timed and 1 profiled step (18 launches each:
    2 pseudo and 4 train forwards): p50/p90, peak memory, device time per
    step; ``vq_pt_unet_easyhard.json`` (512²) likewise with 1 warm-up and 2
    timed steps, its masks and flips drawn as the driver draws them; each
@@ -220,13 +220,50 @@ check does not hold:
    flagship with ``subpixel_tail``: init, 1 warm-up, 2 timed and 1
    profiled step at 18 launches, finite losses, p50 and device time beside
    phase 6's, one served batch of 8 (3 launches).
-16. one ``{"kernels": [...]}`` JSON line, the card line, and last
+16. the flagship's CPS step across processes and serving on a mesh of
+   devices, at full width (``config/vqreptunet1x1v2.json``, 448², global
+   batch 4+4).  First the single-process references from one post-init
+   state (f32 init): its f32 step (TF32 off), the same step again (the
+   card's spread between two runs) and in f64 (the VQ on the plain
+   version, the f32 step's codes on proven near-ties; every activation
+   and gradient checked to be f64, its loss terms within 1e-5 of f32's).
+   At resnet50 the f32 step's encoder gradients lie about 2e-2 (relative
+   L2) from f64, whatever the order of summation (ReLU inputs within f32
+   rounding of 0 flip, and the encoder's BN gradients are sums that
+   nearly cancel: ``tools/f32_grad_conditioning.py``), so each layout's
+   gradients are held against the f64 step within its bound plus twice
+   the single f32 step's own distance.  (a) One rank on NCCL (world 1):
+   the DP path in bf16, init (exactly 6 launches), 1 warm-up, 2 timed, 1
+   profiled and 1 step with every collective synchronised around and
+   timed (18 each; p50 against phase 6's, the collectives' share, peak
+   memory), a host-side trace of one step on the mesh and one without,
+   then the f32 DP step from the reference state (loss terms within 1e-5
+   of the single-process step's, gradients 1e-4 + 2x against f64).
+   (b)-(c) Two spawned ranks (``python3 chip_smoke.py --parallel-child R
+   DIR``) on the one card over gloo with CUDA tensors: DP-2 and pair-2,
+   each its init phase on the gathered batch (exactly 6 and 3 launches
+   per rank), an untimed first step, then from the reference state the
+   compared f32 step (exactly 18 and 9 per rank) with the collectives
+   timed: loss terms within 1e-4 of the single-process step's, gradients
+   1e-3 + 2x against f64, peak memory and the parameter and optimizer
+   bytes per rank (pair about half of DP's).  The control, DP-2 with the
+   BatchNorms outside ``data_parallel``, must fail that gradient bound.
+   Then ZeRO on DP-2's models, the same way: its step (18), its Adam
+   bytes per rank (about half), its parameters bitwise a replicated Adam's
+   on the same gradients, its step within 1e-4 of DP-2's.  No collective
+   is staged through host memory by the port (gloo runs its own on CUDA
+   tensors).  (d) While the ranks run, ``Predictor(mesh=["cuda:0",
+   "cuda:0"], batch_size=8)`` in f32: 3 launches per replica forward,
+   labels against phase 3's f32 predictor (agreement >= 0.999).  No
+   checkpoint is written.
+17. one ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -249,7 +286,7 @@ STREAM_BATCHES = 3
 # 60 timed calls leave 6 samples above the p90 that is reported (phases
 # 3, 6, 8 and 9 take fewer samples since phase 10 came, to keep the
 # script's command time near 300 s)
-TIMED_BATCHES = 60
+TIMED_BATCHES = 40
 THROUGHPUT_BATCHES = 15
 PROFILED_BATCHES = 5
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -261,8 +298,8 @@ TRAIN_BATCH = 4  # labeled, and as many unlabeled
 # timed and profiled samples are cut phase by phase to keep the script's
 # command time under 420 s (with phase 12, then again with phase 14)
 TRAIN_WARMUP = 2
-TRAIN_TIMED = 5
-TRAIN_PROFILED = 2
+TRAIN_TIMED = 3
+TRAIN_PROFILED = 1
 VQ_PER_STEP = 18  # 6 forwards x 3 VQ stages
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
@@ -279,14 +316,14 @@ VARIANT_DRIVER_EPOCHS = 1
 REPT_CONFIG = os.path.join(ROOT, "config", "vqreptunet1x1.json")
 REPT_SIBLINGS = ("vqreptunet", "vqreeuptunet", "vqretemptunet", "vqreptunetdouble1x1")
 REPT_DROP = 80.0
-REPT_WARMUP, REPT_TIMED, REPT_PROFILED = 1, 3, 1
+REPT_WARMUP, REPT_TIMED, REPT_PROFILED = 1, 2, 1
 # phase 9: the supervised baseline; (config, kernel launches per step)
 SUP_CONFIGS = (("only_sup_kmeans", 3), ("CWFID_Unet", 0))
-SUP_WARMUP, SUP_TIMED, SUP_PROFILED = 2, 4, 2
+SUP_WARMUP, SUP_TIMED, SUP_PROFILED = 1, 3, 1
 # phase 10: plaincps / objcps with the attention networks, f32 as the JAX
 # drivers run them; config -> VQ launches per forward
 PLAIN_CONFIG, OBJ_CONFIG = "vqcanet", "vqcanet_obj_loss"
-PLAIN_WARMUP, PLAIN_TIMED, PLAIN_PROFILED = 1, 3, 1
+PLAIN_WARMUP, PLAIN_TIMED, PLAIN_PROFILED = 1, 2, 1
 OBJ_WARMUP, OBJ_TIMED = 1, 2
 PLAIN_CONFIGS = {"vqcanet": 3, "vqcanet_obj_loss": 3, "cps_vqv2": 3, "cps_vqv2_kmeans_init": 3,
                  "cps_vqv2_kmeans_with_imagenet_weights": 3, "cps_vqv2_match": 3, "vq_": 3,
@@ -302,7 +339,7 @@ OBJ_TERMS = ("loss", "cps_loss", "sup_loss", "obj_loss", "commitment_loss")
 # phase 11: vqpt / easyhard with the (x, gt) networks, f32 as the JAX
 # drivers run them
 VQPT_CONFIG, EASYHARD_CONFIG = "vq_pt_unet", "vq_pt_unet_easyhard"
-VQPT_WARMUP, VQPT_TIMED, VQPT_PROFILED = 1, 3, 1
+VQPT_WARMUP, VQPT_TIMED, VQPT_PROFILED = 1, 2, 1
 EASYHARD_WARMUP, EASYHARD_TIMED = 1, 2
 VQPT_CONFIGS = ("vq_eu_pt_unet", "vq_nedpt_unet", "vqash", "vqash_deep", "vqashv2")
 EASYHARD_TERMS = ("loss", "cps_loss", "sup_loss", "commitment_loss", "prototype_loss")
@@ -426,6 +463,36 @@ def profile_window(run, n: int, unit: str, tag: str, label: str, card: str):
     for name, t in ranked[:8] + [kv for kv in ranked[8:] if kv[0].startswith(VQ_KERNEL_NAMES)]:
         print(f"[{tag}]   {t / per:8.3f} ms/{unit} {100 * t / device_us:5.1f}%  {name[:90]}")
     return {"device_ms": device_us / per, "vq_ms": vq_us / per, "busy": busy_us / wall_us}
+
+
+def host_profile(run, tag: str, label: str, card: str) -> dict:
+    """Where one call of ``run()`` spends the host's time: a
+    ``torch.profiler`` window over its host ops alone (the card is
+    synchronised at both ends).  Prints the wall time under the profiler,
+    the ops' summed self time, the distributed ops' share of it, and the
+    ops with the most self time.  Returns ``{"wall_ms", "self_ms",
+    "c10d_ms", "ops", "table"}``, the table {op: (self ms, calls)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = list(prof.key_averages())
+    self_ms = sum(a.self_cpu_time_total for a in avgs) / 1e3
+    c10d_ms = sum(a.self_cpu_time_total for a in avgs
+                  if a.key.startswith(("c10d", "nccl", "gloo", "record_param_comms"))) / 1e3
+    ops = sum(a.count for a in avgs)
+    ranked = sorted(avgs, key=lambda a: -a.self_cpu_time_total)[:5]
+    print(f"[{tag}] {label}: host wall {wall_ms:.1f} ms under the profiler, {ops} host ops, "
+          f"self time {self_ms:.1f} ms, of it distributed ops {c10d_ms:.1f} ms | {card}")
+    for a in ranked:
+        print(f"[{tag}]   {a.self_cpu_time_total / 1e3:8.1f} ms self in {a.count:6d} calls  "
+              f"{a.key[:80]}")
+    return {"wall_ms": wall_ms, "self_ms": self_ms, "c10d_ms": c10d_ms, "ops": ops,
+            "table": {a.key: (a.self_cpu_time_total / 1e3, a.count) for a in avgs}}
 
 
 def first_duplicate(cb: torch.Tensor) -> torch.Tensor:
@@ -3280,6 +3347,695 @@ def ema_phase(cfg, card: str, vq_cuda, vq_assign_reference, vector_quantizer, ro
     return out
 
 
+PAR_STEP_LOSS_TOL = 1e-5  # (a): the world-1 NCCL step against the single-process step, f32
+PAR_STEP_GRAD_TOL = 1e-4
+PAR_CHILD_TIMEOUT_S = 300
+PAR_SERVE_AGREE = 0.999
+PAR_ZERO_TOL = 1e-6  # ZeRO's parameters against a replicated Adam on the same gradients
+PAR_RERUN_TOL = 1e-4  # two runs of one step on the card: 2.1e-5 to 2.6e-5 apart in gradients
+
+
+def _codebook_key(cb: torch.Tensor) -> tuple:
+    """A key for a codebook that two processes holding the same values
+    agree on."""
+    return (tuple(cb.shape), float(cb.double().sum()), float(cb.double().abs().sum()))
+
+
+def vq_recorder(vector_quantizer, vq_cuda, record: dict):
+    """Route ``vq_assign`` through the kernel and keep each call's idx on
+    the host, under (codebook key, occurrence of that key); returns the
+    restore function."""
+    def recording(x, codebook, metric="euclidean"):
+        idx, quantized, counts = vq_cuda.vq_assign_cuda(x, codebook, metric)
+        key = _codebook_key(codebook)
+        n = sum(1 for k in record if k[0] == key)
+        record[(key, n)] = idx.cpu()
+        return idx, quantized, counts
+
+    return swap_vq_assign(vector_quantizer, recording)
+
+
+def vq_replayer(vector_quantizer, vq_cuda, record: dict, data_index: int, substituted: list):
+    """Route ``vq_assign`` through the kernel, except that a row whose code
+    differs from the one ``record`` holds for it (its global row: this
+    data rank's shard of the recorded call) takes the recorded code when
+    the two are proven near-ties on this run's features
+    (``check_near_ties``; a wider mismatch fails).  Features that differ in
+    rounding between two layouts of the same step meet the kernel's
+    argmin at such ties, as phase 6's plain VQ does.  The number of rows
+    given the recorded code is appended per call; returns the restore
+    function."""
+    seen: dict = {}
+
+    def replaying(x, codebook, metric="euclidean"):
+        idx, _, _ = vq_cuda.vq_assign_cuda(x, codebook, metric)
+        key = _codebook_key(codebook)
+        n = seen[key] = seen.get(key, -1) + 1
+        want = record[(key, n)].to(idx.device)
+        want = want[data_index * idx.shape[0]:(data_index + 1) * idx.shape[0]]
+        rows, _ = check_near_ties("par-replay", x.detach(), codebook, idx, want, metric)
+        idx = idx.clone()
+        idx[rows] = want[rows]
+        substituted.append(int(rows.numel()))
+        quantized = codebook.index_select(0, idx.long())
+        counts = torch.bincount(idx.long(), minlength=codebook.shape[0]).to(torch.int32)
+        return idx, quantized, counts
+
+    return swap_vq_assign(vector_quantizer, replaying)
+
+
+@contextlib.contextmanager
+def _f64_floats():
+    """``Tensor.float()`` leaves f64 tensors as they are inside the block,
+    so that a step's f32 casts keep an f64 run in f64."""
+    f32 = torch.Tensor.float
+    torch.Tensor.float = lambda t: t if t.dtype == torch.float64 else f32(t)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = f32
+
+
+@contextlib.contextmanager
+def _non_f64_outputs(models, seen: list):
+    """Forward hooks on every module of ``models`` that append to ``seen``
+    the name of each module whose output holds an activation (a floating
+    tensor of two or more dimensions) not in f64, while the block runs.
+    Scalars and per-stage vectors are loss terms, held by their own check,
+    and metrics (code usage from integer counts)."""
+    def tensors(o):
+        if isinstance(o, torch.Tensor):
+            yield o
+        elif isinstance(o, (tuple, list)):
+            for v in o:
+                yield from tensors(v)
+        elif isinstance(o, dict):
+            for v in o.values():
+                yield from tensors(v)
+
+    hooks = []
+    for i, model in enumerate(models):
+        for name, module in model.named_modules():
+            def hook(_module, _args, output, name=f"model_{i + 1}.{name}"):
+                if any(t.is_floating_point() and t.dim() >= 2 and t.dtype != torch.float64
+                       for t in tensors(output)):
+                    seen.append(name)
+            hooks.append(module.register_forward_hook(hook))
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def f64_replayer(vector_quantizer, vq_assign_reference, record: dict):
+    """``vq_assign`` for an f64 run: the plain version in f64, each row
+    given the recorded f32 step's code where the two differ on a proven
+    near-tie (a wider mismatch fails)."""
+    seen: dict = {}
+
+    def replaying(x, codebook, metric="euclidean"):
+        idx, _, _ = vq_assign_reference(x, codebook, metric)
+        key = _codebook_key(codebook)
+        n = seen[key] = seen.get(key, -1) + 1
+        want = record[(key, n)].to(idx.device)
+        rows, _ = check_near_ties("par-f64", x.detach(), codebook, idx, want, metric)
+        idx[rows] = want[rows]
+        counts = torch.bincount(idx.long(), minlength=codebook.shape[0]).to(torch.int32)
+        return idx, codebook.index_select(0, idx.long()), counts
+
+    return swap_vq_assign(vector_quantizer, replaying)
+
+
+def _against_f64(g: dict, g64: dict, single_err: dict, base: float):
+    """Each gradient's relative L2 distance to the f64 step, against its
+    bound ``base`` + 2 x the single-process f32 step's own distance (the
+    step's f32 conditioning).  Returns (the largest share of its bound,
+    the three tensors nearest their bounds as "name err / bound")."""
+    rows = sorted(((rel_l2(t, g64[k]) / (base + 2 * single_err[k]), k, rel_l2(t, g64[k]),
+                    base + 2 * single_err[k]) for k, t in g.items()), reverse=True)
+    return rows[0][0], ", ".join(f"{k} {e:.2e} / {b:.2e}" for _, k, e, b in rows[:3])
+
+
+def _over_bound(g: dict, g64: dict, single_err: dict, base: float) -> tuple:
+    """(tensors over their ``_against_f64`` bound, tensors, encoder
+    tensors over it, encoder tensors)."""
+    over = {k for k, t in g.items() if rel_l2(t, g64[k]) > base + 2 * single_err[k]}
+    enc = [k for k in g if ".encoder." in k]
+    return len(over), len(g), len(over.intersection(enc)), len(enc)
+
+
+def _par_setup(cfg):
+    """The flagship's step settings for phase 16: (dice, step keywords,
+    init threshold, three global batches of 4+4 drawn from the phase's
+    seed: init, compared step, timed step)."""
+    from vq_seg_tpu_torch.losses import make_loss
+
+    tc = cfg.train
+    num_classes, criterion = int(cfg.num_classes), tc.criterion
+    dice = make_loss(criterion.name, num_classes, ignore_index=255, weight=criterion.get("weight"))
+    step_kw = dict(num_classes=num_classes, confidence_threshold=float(tc.confidence_threshold),
+                   cps_loss_weight=tc.cps_loss_weight,
+                   commitment_loss_weight=tc.total_commitment_loss_weight,
+                   prototype_loss_weight=tc.total_prototype_loss_weight,
+                   ce_weight=criterion.get("weight"))
+    batches = train_batches(np.random.default_rng(SEED + 16), 3, int(cfg.resize))
+    return dice, step_kw, batches
+
+
+def _par_state(cfg, mesh=None, zero=False):
+    from vq_seg_tpu_torch.training import create_cps_state, make_lr_schedule
+
+    return create_cps_state(cfg.model, make_lr_schedule(cfg.train, steps_per_epoch=3),
+                            seed=SEED, init_weights=bool(cfg.train.init_weights), mesh=mesh,
+                            zero=zero)
+
+
+def _grads_of(state) -> dict:
+    """{"model_i.name": gradient on the host} of the held models."""
+    return {f"model_{i + 1}.{n}": p.grad.detach().cpu() for i, m, _ in state.held()
+            for n, p in m.named_parameters() if p.grad is not None}
+
+
+def _held_bytes(state) -> int:
+    """Bytes of the parameters and optimizer moments this rank holds."""
+    from vq_seg_tpu_torch.parallel import opt_bytes_per_chip
+
+    return sum(sum(p.numel() * p.element_size() for p in m.parameters()) + opt_bytes_per_chip(o)
+               for _, m, o in state.held())
+
+
+def _par_step(step, state, batch, shard, vq_cuda, collectives, timed: bool):
+    """One step of ``step`` on this rank's shard of ``batch``, ended by a
+    fetch of its loss: (metrics on the host, launches, ms, collectives'
+    seconds and calls by name, the calls only when ``timed``)."""
+    l_img, target, ul_img = batch
+    collectives.timing(timed)
+    torch.cuda.synchronize()
+    n0 = vq_cuda.launches
+    t0 = time.perf_counter()
+    _, metrics, _, _ = step(state, to_input(shard(l_img)), shard(target), to_input(shard(ul_img)))
+    float(metrics["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    coll = (collectives.stats["seconds"], dict(collectives.stats["calls"]))
+    collectives.timing(False)
+    return ({k: v.detach().float().cpu() for k, v in metrics.items()}, vq_cuda.launches - n0, ms,
+            coll)
+
+
+def _compare_step(m, g, want_m, want_g):
+    """(largest relative difference of the loss terms, largest relative L2
+    difference of the gradients, the three tensors where they are largest
+    as "name rel (norm)") against the single-process step."""
+    loss_err = max(abs(float(m[k]) - float(want_m[k])) / max(abs(float(want_m[k])), 1e-30)
+                   for k in LOSS_TERMS)
+    errs = sorted(((rel_l2(t, want_g[name]), name) for name, t in g.items()), reverse=True)
+    worst = ", ".join(f"{name} {err:.2e} ({float(want_g[name].norm()):.2e})"
+                      for err, name in errs[:3])
+    return loss_err, errs[0][0], worst
+
+
+def _par_reset(state, post, mesh, zero: bool):
+    """The held models back at the post-init state, the Adam moments
+    empty (ZeRO's new, sharded over the data group), the step at 0."""
+    from vq_seg_tpu_torch.parallel import zero_adam
+
+    for i, m, o in state.held():
+        m.load_state_dict(post[i])
+        m.zero_grad(set_to_none=True)
+        if not zero:
+            o.state.clear()
+    if zero:
+        state.opt_1, state.opt_2 = (
+            zero_adam(m.parameters(), mesh.data_group, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                      weight_decay=0.0) for m in (state.model_1, state.model_2))
+    state.step = 0
+
+
+def parallel_child(rank: int, job_dir: str) -> int:
+    """Phase 16(b)-(c), one of two ranks on the one card: a gloo group
+    over CUDA tensors.  DP-2 and pair-2, each: the init phase on this
+    rank's shard (the gathered global batch); ZeRO on DP-2's models.  Each
+    layout then runs one untimed step from the post-init state the parent
+    wrote (it warms the layout: cuDNN's first-call set-up, ZeRO's first
+    partition), goes back to that state and runs the compared f32 step,
+    its collectives timed.  DP-2 also runs the control: the same step with
+    the BatchNorms outside ``data_parallel``.  Writes ``rank{r}.pt`` for
+    the parent to compare."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from vq_seg_tpu_torch import load_config
+    from vq_seg_tpu_torch.models import layers
+    from vq_seg_tpu_torch.models.modules import vector_quantizer
+    from vq_seg_tpu_torch.ops import vq_cuda
+    from vq_seg_tpu_torch.parallel import collectives, make_mesh, shard_batch_fn
+    from vq_seg_tpu_torch.training import cps_init_phase, make_cps_train_step
+    from vq_seg_tpu_torch.training.cps import make_cps_train_step_pairsharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    vq_cuda.build()
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(job_dir, 'store')}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=PAR_CHILD_TIMEOUT_S))
+    try:
+        cfg = load_config(CONFIG)
+        dice, step_kw, batches = _par_setup(cfg)
+        post = torch.load(os.path.join(job_dir, "post_init.pt"), map_location="cuda",
+                          weights_only=True)
+        record = torch.load(os.path.join(job_dir, "vq_record.pt"), weights_only=True)
+        meshes = {"dp2": make_mesh(2, 1), "pair2": make_mesh(1, 2)}
+        out = {}
+        dp_params = dp_grads = None
+        for layout in ("dp2", "zero2", "pair2"):
+            mesh = meshes["pair2" if layout == "pair2" else "dp2"]
+            shard = shard_batch_fn(mesh)
+            zero = layout == "zero2"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t_layout = time.perf_counter()
+            init_launches, cb_err = None, 0.0
+            if not zero:  # ZeRO takes DP-2's models
+                state = _par_state(cfg, mesh)
+                vq_cuda.launches = 0
+                cps_init_phase(state, to_input(shard(batches[0][0])), shard(batches[0][1]),
+                               float(cfg.train.confidence_threshold), seed=SEED, mesh=mesh)
+                init_launches = vq_cuda.launches
+                cb_err = max(float((m.state_dict()[k] - post[i][k]).abs().max())
+                             for i, m, _ in state.held() for k in post[i] if "codebooks" in k)
+            if mesh.pair:
+                step = make_cps_train_step_pairsharded(dice, mesh, half=False, **step_kw)
+            else:
+                step = make_cps_train_step(dice, mesh=mesh, half=False, **step_kw)
+            _par_reset(state, post, mesh, zero)
+            _, _, first_ms, _ = _par_step(step, state, batches[2], shard, vq_cuda, collectives,
+                                          False)
+            _par_reset(state, post, mesh, zero)
+            substituted: list = []
+            restore = vq_replayer(vector_quantizer, vq_cuda, record, mesh.data_index,
+                                  substituted)
+            try:  # every collective synchronised around and timed
+                m1, n1, ms1, (coll_s, calls) = _par_step(step, state, batches[1], shard, vq_cuda,
+                                                         collectives, True)
+            finally:
+                restore()
+            res = {"coords": (mesh.data_index, mesh.model_index), "metrics": m1,
+                   "substituted": substituted,
+                   "init_launches": init_launches, "step_launches": [n1],
+                   "codebook_vs_parent": cb_err, "held_bytes": _held_bytes(state),
+                   "replicas_differed": state.replicas_differed}
+            grads = _grads_of(state)
+            if mesh.data_index == 0 and not zero:
+                res["grads"] = grads
+            params = {f"{i}.{n}": p.detach().cpu() for i, m, _ in state.held()
+                      for n, p in m.named_parameters()}
+            if layout == "dp2":
+                dp_params, dp_grads = params, grads
+                # the control: the BatchNorms outside data_parallel, each rank
+                # normalising by its own shard (every other reduction global)
+                _par_reset(state, post, mesh, False)
+                active = layers.active_group
+                layers.active_group = lambda: None
+                try:
+                    control_m, _, _, _ = _par_step(step, state, batches[1], shard, vq_cuda,
+                                                   collectives, False)
+                finally:
+                    layers.active_group = active
+                if mesh.data_index == 0:
+                    res["control_metrics"] = control_m
+                    res["control_grads"] = _grads_of(state)
+            if zero:
+                from vq_seg_tpu_torch.parallel import opt_bytes_per_chip
+
+                # a replicated Adam from the post-init state on these
+                # gradients at the step's LR, against ZeRO's parameters
+                adam_err = 0.0
+                for i, m, _ in state.held():
+                    named = dict(m.named_parameters())
+                    ref = {n: post[i][n].clone().requires_grad_(True) for n in named}
+                    for n, t in ref.items():
+                        t.grad = named[n].grad.clone()
+                    torch.optim.Adam(list(ref.values()), lr=state.schedule(0), betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=0.0).step()
+                    adam_err = max([adam_err] + [float((named[n] - t).detach().abs().max())
+                                                 for n, t in ref.items()])
+                res["params_vs_adam"] = adam_err
+                res["params_vs_dp"] = max(float((p - dp_params[k]).abs().max())
+                                          for k, p in params.items())
+                res["grads_vs_dp"] = max(rel_l2(g, dp_grads[k]) for k, g in grads.items())
+                res["opt_bytes"] = sum(opt_bytes_per_chip(o) for _, _, o in state.held())
+                res["replicated_opt_bytes"] = 2 * sum(t.numel() * 4 for t in params.values())
+            del grads, params
+            res.update(first_ms=first_ms, step_ms=ms1, collective_s=coll_s,
+                       collective_calls=calls, peak=torch.cuda.max_memory_allocated(),
+                       seconds=time.perf_counter() - t_layout)
+            out[layout] = res
+            del step
+        torch.save(out, os.path.join(job_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(cfg, card: str, vq_cuda, vq_assign_reference, vector_quantizer, model, pred32,
+                   serve_batches, step_p50: float) -> dict:
+    """Phase 16: the flagship's CPS step across processes and serving on
+    a mesh of devices: the single-process f32 reference, then (a) alone on
+    the card, then (b)-(c) in two spawned ranks while (d) serves here."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vq_seg_tpu_torch.parallel import collectives, make_mesh, shard_batch_fn
+    from vq_seg_tpu_torch.parallel.distributed import initialize
+    from vq_seg_tpu_torch.serving import Predictor
+    from vq_seg_tpu_torch.training import cps_init_phase, make_cps_train_step
+
+    out = {}
+    hw = int(cfg.resize)
+    th = float(cfg.train.confidence_threshold)
+    dice, step_kw, batches = _par_setup(cfg)
+    job_dir = tempfile.mkdtemp(prefix="vq_seg_par_")
+    t0 = time.perf_counter()
+    try:
+        # the single-process reference: f32 init, then one f32 step
+        single = _par_state(cfg)
+        cps_init_phase(single, to_input(batches[0][0]), batches[0][1], th, seed=SEED)
+        post = [single.model_1.state_dict(), single.model_2.state_dict()]
+        torch.save([{k: v.cpu() for k, v in sd.items()} for sd in post],
+                   os.path.join(job_dir, "post_init.pt"))
+        ref_state = copy.deepcopy(single)
+        step32 = make_cps_train_step(dice, half=False, **step_kw)
+        l_img, target, ul_img = batches[1]
+        record: dict = {}
+        restore = vq_recorder(vector_quantizer, vq_cuda, record)
+        try:
+            _, ref_m, _, _ = step32(ref_state, to_input(l_img), target, to_input(ul_img))
+        finally:
+            restore()
+        torch.save(record, os.path.join(job_dir, "vq_record.pt"))
+        ref_m = {k: v.detach().float().cpu() for k, v in ref_m.items()}
+        ref_g = _grads_of(ref_state)
+        single_bytes = _held_bytes(ref_state)
+        # the same step in f64 (VQ on the plain version, the f32 step's codes
+        # on proven near-ties): the f32 step's own gradient error
+        del ref_state
+        torch.cuda.empty_cache()
+        ref64 = copy.deepcopy(single)
+        ref64.model_1.double()
+        ref64.model_2.double()
+        restore = f64_replayer(vector_quantizer, vq_assign_reference, record)
+        not_f64: list = []
+        try:
+            with _f64_floats(), _non_f64_outputs((ref64.model_1, ref64.model_2), not_f64):
+                _, m64, _, _ = step32(ref64, to_input(l_img).double(), target,
+                                      to_input(ul_img).double())
+        finally:
+            restore()
+        g64 = _grads_of(ref64)
+        del ref64
+        # the f64 run stayed in f64: every module's floating outputs, every
+        # gradient, and its loss terms within the f32 step's rounding
+        loss64 = max(abs(float(m64[k]) - float(ref_m[k])) / max(abs(float(m64[k])), 1e-30)
+                     for k in LOSS_TERMS)
+        grads_not_f64 = sorted(k for k, t in g64.items() if t.dtype != torch.float64)
+        print(f"[par] the f64 step: {len(not_f64)} module activations and {len(grads_not_f64)} "
+              f"gradients not in f64; the f32 step's loss terms within {loss64:.3e} relative of "
+              f"its (limit {PAR_STEP_LOSS_TOL})")
+        check(not not_f64, f"the f64 step ran modules in lower precision: {not_f64[:5]}")
+        check(not grads_not_f64, f"the f64 step's gradients not in f64: {grads_not_f64[:5]}")
+        check(loss64 <= PAR_STEP_LOSS_TOL, f"the f64 step's loss terms differ by {loss64}")
+        single_err = {k: rel_l2(t, g64[k]) for k, t in ref_g.items()}
+        worst64 = sorted(single_err.items(), key=lambda kv: -kv[1])[:3]
+        print(f"[par] the single-process f32 step against the same step in f64: gradients "
+              f"relative L2 median {statistics.median(single_err.values()):.3e}, largest "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst64))
+        out["single_f64_err"] = max(single_err.values())
+        ref_state = None
+        # the same step again: the card's own spread between two runs
+        again = copy.deepcopy(single)
+        _, again_m, _, _ = step32(again, to_input(l_img), target, to_input(ul_img))
+        noise = _compare_step({k: v.detach().float().cpu() for k, v in again_m.items()},
+                              _grads_of(again), ref_m, ref_g)
+        del again
+        torch.cuda.empty_cache()
+        print(f"[par] the single-process f32 step twice from the same state and batch: loss "
+              f"terms max relative difference {noise[0]:.3e}, gradients max relative L2 "
+              f"{noise[1]:.3e} ({noise[2]})")
+        out["single_noise"] = noise[1]
+        print(f"[par] the single-process references in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+        # (a): one rank on NCCL, world size 1, the bf16 DP path at full width
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        initialize(f"tcp://localhost:{port}", 1, 0, backend="nccl")
+        try:
+            mesh = make_mesh(1, 1)
+            shard = shard_batch_fn(mesh)
+            half = bool(cfg.train.half)
+            state = _par_state(cfg, mesh)
+            step = make_cps_train_step(dice, mesh=mesh, half=half, **step_kw)
+            vq_cuda.launches = 0
+            cps_init_phase(state, to_input(batches[0][0]), batches[0][1], th, seed=SEED,
+                           half=half, mesh=mesh)
+            init_launches = vq_cuda.launches
+            run = [(batches[1 + i % 2]) for i in range(5)]
+            times, per_step = [], []
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(1 + 2):  # a warm-up and two timed steps
+                m, n, ms, _ = _par_step(step, state, run[i], shard, vq_cuda, collectives, False)
+                per_step.append(n)
+                if i >= 1:
+                    times.append(ms)
+            vq_cuda.launches = 0
+            prof = profile_window(
+                lambda i: step(state, to_input(run[3][0]), run[3][1], to_input(run[3][2])),
+                1, "step", "par-nccl-profile", "bf16 DP step, world 1 on NCCL", card)
+            per_step.append(vq_cuda.launches)
+            # one more with every collective synchronised and timed
+            _, n, ms, (coll_s, calls) = _par_step(step, state, run[4], shard, vq_cuda,
+                                                  collectives, True)
+            per_step.append(n)
+            shares = [coll_s * 1e3 / ms]
+            peak = torch.cuda.max_memory_allocated()
+            check(init_launches == 6 and per_step == [VQ_PER_STEP] * 5,
+                  f"NCCL DP launches {init_launches} + {per_step}, expected 6 + 18 per step")
+            check(all(np.isfinite(float(m[k])) for k in LOSS_TERMS), "non-finite NCCL DP loss")
+            # the host side of one step, on the mesh and without one
+            plain = make_cps_train_step(dice, half=half, **step_kw)
+            hosts = [host_profile(
+                lambda f=f: float(f(state, to_input(run[4][0]), run[4][1],
+                                    to_input(run[4][2]))[1]["loss"]),
+                "par-host", label, card)
+                for f, label in ((step, "bf16 DP step, world 1 on NCCL"),
+                                 (plain, "the same bf16 step without a mesh"))]
+            del state, plain
+            more, less = (h["table"] for h in hosts)
+            extra = sorted(((t - less.get(k, (0.0, 0))[0], k) for k, (t, _) in more.items()),
+                           reverse=True)[:12]
+            print(f"[par-host] where the DP step's extra {hosts[0]['self_ms'] - hosts[1]['self_ms']:.1f} "
+                  f"ms of host self time goes, by op (its calls against the meshless step's): "
+                  + "; ".join(f"{k} +{d:.1f} ms ({more[k][1]} / {less.get(k, (0, 0))[1]})"
+                              for d, k in extra))
+            # the same DP step in f32 from the single-process post-init state
+            dp_state = copy.deepcopy(single)
+            step32_dp = make_cps_train_step(dice, mesh=mesh, half=False, **step_kw)
+            substituted: list = []
+            restore = vq_replayer(vector_quantizer, vq_cuda, record, 0, substituted)
+            try:
+                m32, _, _, _ = _par_step(step32_dp, dp_state, batches[1], shard, vq_cuda,
+                                         collectives, False)
+            finally:
+                restore()
+            g32 = _grads_of(dp_state)
+            loss_err, grad_err, worst = _compare_step(m32, g32, ref_m, ref_g)
+            share64, worst64 = _against_f64(g32, g64, single_err, PAR_STEP_GRAD_TOL)
+            del dp_state, g32
+            print(f"[par-nccl] DP path on NCCL, world 1: init {init_launches} launches, steps "
+                  f"{per_step} (1 warm-up, 2 timed, 1 profiled, 1 with the collectives timed); "
+                  f"bf16 p50 {statistics.median(times):.3f} ms against phase 6's {step_p50:.3f} "
+                  f"ms; the collectives {100 * shares[0]:.1f} % of a step that synchronises "
+                  f"around each ({sum(calls.values())} calls: {calls}); peak "
+                  f"{peak / 2**30:.2f} GiB | {card}")
+            print(f"[par-nccl] f32 step against the single-process f32 step from the same state "
+                  f"and batch, TF32 off: loss terms max relative difference {loss_err:.3e} "
+                  f"(limit {PAR_STEP_LOSS_TOL}); gradients max relative L2 {grad_err:.3e} "
+                  f"(largest: {worst}); against the f64 step, each within {PAR_STEP_GRAD_TOL} + "
+                  f"2 x the single f32 step's own distance: {100 * share64:.1f} % of the bound "
+                  f"at most ({worst64}); near-tie rows given the single-process step's code, "
+                  f"per VQ call: {substituted}")
+            check(loss_err <= PAR_STEP_LOSS_TOL, f"NCCL DP loss terms differ by {loss_err}")
+            check(share64 <= 1.0, f"NCCL DP gradients against f64: {worst64}")
+            out["nccl"] = {"init_launches": init_launches, "step_launches": per_step,
+                           "p50": statistics.median(times), "share": shares[0],
+                           "peak_gib": peak / 2**30, "loss_err": loss_err, "grad_err": grad_err,
+                           "f64_share": share64, "host": hosts,
+                           "device_ms": prof["device_ms"] if prof else None}
+        finally:
+            dist.destroy_process_group()
+        print(f"[par] (a) in {time.perf_counter() - t0:.1f} s")
+        # (b)-(c): two ranks over gloo with CUDA tensors
+        t0 = time.perf_counter()
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK")}
+        logs = [open(os.path.join(job_dir, f"rank{r}.log"), "w+") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-child",
+                                   str(r), job_dir], env=env, stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            # (d) while they run: serving on a mesh of two replicas on the card
+            meshed = Predictor(model, input_hw=(hw, hw), batch_size=BATCH, half=False,
+                               mesh=["cuda:0", "cuda:0"])
+            vq_cuda.launches = 0
+            labels = [meshed(b) for b in serve_batches]
+            streamed = list(meshed.predict_stream(serve_batches))
+            serve_launches = vq_cuda.launches
+            n_batches = 2 * len(serve_batches)
+            agree = float(np.mean([np.mean(a == pred32(b)) for a, b in zip(labels, serve_batches)]))
+            same = all(np.array_equal(a, b) for a, b in zip(labels, streamed))
+            out.update(serve_launches=serve_launches, serve_agree=agree)
+            print(f"[par-serve] Predictor(mesh=['cuda:0', 'cuda:0'], batch_size={BATCH}), f32: "
+                  f"{len(meshed.replicas)} replicas of {BATCH // 2} images, {serve_launches} "
+                  f"vq_assign launches in {n_batches} batches (3 per replica forward); label "
+                  f"agreement with phase 3's f32 single predictor {agree:.6f} (limit "
+                  f"{PAR_SERVE_AGREE}); predict_stream bitwise the calls: {same}")
+            check(serve_launches == 3 * 2 * n_batches,
+                  f"mesh serving launched {serve_launches}, expected {3 * 2 * n_batches}")
+            check(agree >= PAR_SERVE_AGREE, f"mesh serving agreement {agree}")
+            check(same, "mesh predict_stream differs from its calls")
+            del meshed
+            for p in procs:
+                p.wait(timeout=PAR_CHILD_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.seek(0)
+                text = f.read()
+                f.close()
+                if text.strip():
+                    print("\n".join(f"[par-child] {line}" for line in text.splitlines()[-40:]))
+        check(all(p.returncode == 0 for p in procs),
+              f"phase 16 ranks exited {[p.returncode for p in procs]}")
+        ranks = [torch.load(os.path.join(job_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        calls = sorted({name for r in ranks for layout in ("dp2", "pair2", "zero2")
+                        for name in r[layout]["collective_calls"]})
+        print(f"[par] (b)-(c) two ranks over gloo on one card in {time.perf_counter() - t0:.1f} "
+              f"s; collectives run on the CUDA tensors, none staged through host memory by the "
+              f"port: {calls}")
+        expect = {"dp2": (6, VQ_PER_STEP), "pair2": (3, VQ_PER_STEP // 2),
+                  "zero2": (None, VQ_PER_STEP)}
+        for layout in ("dp2", "pair2", "zero2"):
+            rs = [r[layout] for r in ranks]
+            n_init, n_step = expect[layout]
+            for r in rs:
+                check(r["init_launches"] == n_init and r["step_launches"] == [n_step],
+                      f"{layout} rank {r['coords']}: launches {r['init_launches']} + "
+                      f"{r['step_launches']}, expected {n_init} + {n_step} per step")
+                check(r["replicas_differed"] == 0, f"{layout}: the start-up broadcast changed "
+                      f"{r['replicas_differed']} tensors")
+            grads = {}
+            for r in rs:
+                grads.update(r.get("grads", {}))
+            if layout == "zero2":  # the DP-2 step's, which ZeRO's equal (checked below)
+                grads = out["dp2"]["grads"]
+            loss_err, grad_err, worst = _compare_step(rs[0]["metrics"], grads, ref_m, ref_g)
+            share64, worst64 = _against_f64(grads, g64, single_err, STEP_GRAD_TOL)
+            if layout == "dp2":
+                # the control: DP-2 with the BatchNorms per rank must fail
+                control = next(r for r in rs if "control_grads" in r)
+                c_loss, _, _ = _compare_step(control["control_metrics"],
+                                             control["control_grads"], ref_m, ref_g)
+                c_share, c_worst = _against_f64(control["control_grads"], g64, single_err,
+                                                STEP_GRAD_TOL)
+                c_over = _over_bound(control["control_grads"], g64, single_err, STEP_GRAD_TOL)
+                print(f"[par-control] the DP-2 step with the BatchNorms outside data_parallel "
+                      f"(each rank's own statistics): loss terms max relative difference "
+                      f"{c_loss:.3e}; gradients against the f64 step at {100 * c_share:.0f} % of "
+                      f"the bound at most ({c_worst}); {c_over[0]} of {c_over[1]} tensors over "
+                      f"their bound, {c_over[2]} of {c_over[3]} encoder tensors; the correct "
+                      f"layout's largest share {100 * share64:.1f} %")
+                check(c_share > 1.0, "the gradient bound passes DP-2 with per-rank BatchNorms")
+                out["control"] = {"loss_err": c_loss, "f64_share": c_share,
+                                  "over": c_over}
+            check(set(grads) == set(ref_g), f"{layout}: gradients of {len(grads)} tensors, "
+                  f"expected {len(ref_g)}")
+            share = [r["collective_s"] * 1e3 / r["step_ms"] for r in rs]
+            print(f"[par-{layout}] f32 step, global batch {TRAIN_BATCH}+{TRAIN_BATCH}, "
+                  f"{hw}x{hw}, TF32 off, against the single-process step: loss terms max "
+                  f"relative difference {loss_err:.3e} (limit {STEP_LOSS_TOL}); gradients max "
+                  f"relative L2 {grad_err:.3e} (largest: {worst}); against the f64 step, each "
+                  f"within {STEP_GRAD_TOL} + 2 x the single f32 step's own distance: "
+                  f"{100 * share64:.1f} % of the bound at most ({worst64}); "
+                  f"near-tie rows given the single-process step's code per rank "
+                  f"{[sum(r['substituted']) for r in rs]}; launches per "
+                  f"rank {[r['init_launches'] for r in rs]} at init + "
+                  f"{[r['step_launches'] for r in rs]}; init codebooks against the parent's "
+                  f"max |d| {max(r['codebook_vs_parent'] for r in rs):.3e}")
+            print(f"[par-{layout}] per rank (two ranks sharing the card): the first step "
+                  f"{[round(r['first_ms'], 3) for r in rs]} ms (untimed collectives), the "
+                  f"compared step after it {[round(r['step_ms'], 3) for r in rs]} ms with every "
+                  f"collective synchronised around and timed, the collectives "
+                  f"{[round(100 * x, 1) for x in share]} % of it "
+                  f"({[sum(r['collective_calls'].values()) for r in rs]} calls); the layout took "
+                  f"{[round(r['seconds'], 1) for r in rs]} s; peak memory "
+                  f"{[round(r['peak'] / 2**30, 2) for r in rs]} GiB, parameters and optimizer "
+                  f"state held {[round(r['held_bytes'] / 2**20, 1) for r in rs]} MiB "
+                  f"(single process {single_bytes / 2**20:.1f}) | {card}")
+            check(loss_err <= STEP_LOSS_TOL, f"{layout}: loss terms differ by {loss_err}")
+            check(share64 <= 1.0, f"{layout}: gradients against f64: {worst64}")
+            out[layout] = {"grads": grads, "loss_err": loss_err, "grad_err": grad_err,
+                           "f64_share": share64,
+                           "init_launches": [r["init_launches"] for r in rs],
+                           "step_launches": [r["step_launches"] for r in rs],
+                           "first_ms": [r["first_ms"] for r in rs],
+                           "step_ms": [r["step_ms"] for r in rs], "share": share,
+                           "peak_gib": [r["peak"] / 2**30 for r in rs],
+                           "held_mib": [r["held_bytes"] / 2**20 for r in rs]}
+            if layout == "zero2":
+                ratio = [r["opt_bytes"] / r["replicated_opt_bytes"] for r in rs]
+                dadam = max(r["params_vs_adam"] for r in rs)
+                dparams = max(r["params_vs_dp"] for r in rs)
+                dgrads = max(r["grads_vs_dp"] for r in rs)
+                dloss = max(abs(float(rs[0]["metrics"][k]) - float(ranks[0]["dp2"]["metrics"][k]))
+                            / max(abs(float(ranks[0]["dp2"]["metrics"][k])), 1e-30)
+                            for k in LOSS_TERMS)
+                print(f"[par-zero2] Adam moments held per rank {[r['opt_bytes'] for r in rs]} "
+                      f"bytes of {rs[0]['replicated_opt_bytes']} replicated "
+                      f"({[round(x, 4) for x in ratio]}); parameters after the step against a "
+                      f"replicated Adam on the same gradients max |d| {dadam:.3e} (limit "
+                      f"{PAR_ZERO_TOL}); against the DP-2 step: loss terms max relative "
+                      f"difference {dloss:.3e}, gradients max relative L2 {dgrads:.3e} (limit "
+                      f"{PAR_RERUN_TOL} each: cuDNN's backward and index_add_ sum in no fixed "
+                      f"order), parameters max |d| {dparams:.3e} | {card}")
+                check(all(0.4 <= x <= 0.6 for x in ratio), f"ZeRO holds {ratio} of the moments")
+                check(dadam <= PAR_ZERO_TOL, f"ZeRO's parameters differ from Adam's by {dadam}")
+                check(dgrads <= PAR_RERUN_TOL, f"ZeRO step's gradients differ from DP's by {dgrads}")
+                check(dloss <= PAR_RERUN_TOL, f"ZeRO step's loss terms differ from DP's by {dloss}")
+                out["zero2"].update(opt_bytes=[r["opt_bytes"] for r in rs],
+                                    replicated=rs[0]["replicated_opt_bytes"],
+                                    params_vs_adam=dadam)
+        pair_share = [b / a for a, b in zip(out["dp2"]["held_mib"], out["pair2"]["held_mib"])]
+        print(f"[par] pair-2 holds {[round(x, 3) for x in pair_share]} of DP-2's parameter and "
+              f"optimizer bytes per rank")
+        check(all(0.4 <= x <= 0.6 for x in pair_share), f"pair holds {pair_share} of DP's bytes")
+        for layout in ("dp2", "pair2", "zero2"):
+            out[layout].pop("grads")
+
+    finally:
+        shutil.rmtree(job_dir, ignore_errors=True)
+    return out
+
+
 def _no_grad_train_pass(model, x):
     """One train-mode forward of ``model`` on ``x`` without gradients, on a
     copy (the running statistics of ``model`` stay)."""
@@ -3508,7 +4264,13 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # -- 16. result lines -----------------------------------------------------------
+    # -- 16. the CPS step across processes and serving on a mesh of devices
+    t_par = time.perf_counter()
+    par = parallel_phase(cfg, card, vq_cuda, vq_assign_reference, vector_quantizer, model,
+                         pred32, batches, train["p50"])
+    print(f"[par] phase 16 in {time.perf_counter() - t_par:.1f} s | {card}")
+
+    # -- 17. result lines -----------------------------------------------------------
     main_path = results[:len(captured)]  # the three shapes the serving forward gave
     shape_keys = ("case", "n", "c", "k", "ms", "plain_ms", "bound_ms", "f32_simt_bound_ms",
                   "near_ties", "max_abs_err")
@@ -3665,6 +4427,33 @@ def main() -> int:
         "int8_serve_p50_ms": ema["int8_p50"], "int8_param_bytes": ema["int8_bytes"],
         "int8_label_agreement": ema["int8_agree"], "subpixel_step_p50_ms": ema["sub_p50"],
         "step_device_ms": {k: ema[f"{k}_device_ms"] for k in ("ema", "cos", "sub")},
+        # phase 16: per rank, the init phase and each step of the DP path on
+        # NCCL (world 1: 1 warm-up, 2 timed, 1 profiled, 1 with the
+        # collectives timed), of DP-2, pair-2 and ZeRO on DP-2 over gloo (the
+        # compared step, after an untimed first step); two replicas serving
+        # on the card
+        "launches_parallel": {
+            "nccl_dp": {"init": par["nccl"]["init_launches"],
+                        "steps": par["nccl"]["step_launches"]},
+            **{layout: {"init": par[layout]["init_launches"],
+                        "steps": par[layout]["step_launches"]}
+               for layout in ("dp2", "pair2", "zero2")},
+            "mesh_serve": par["serve_launches"]},
+        "parallel_first_step_ms_per_rank": {layout: par[layout]["first_ms"]
+                                            for layout in ("dp2", "pair2", "zero2")},
+        "parallel_step_ms_per_rank": {layout: par[layout]["step_ms"]
+                                      for layout in ("dp2", "pair2", "zero2")},
+        "parallel_f64_bound_share": {"nccl_dp": par["nccl"]["f64_share"],
+                                     **{layout: par[layout]["f64_share"]
+                                        for layout in ("dp2", "pair2", "zero2")},
+                                     "control_unsynced_bn": par["control"]["f64_share"]},
+        "parallel_collective_share": {"nccl_dp": par["nccl"]["share"],
+                                      **{layout: par[layout]["share"]
+                                         for layout in ("dp2", "pair2", "zero2")}},
+        "parallel_peak_gib_per_rank": {"nccl_dp": par["nccl"]["peak_gib"],
+                                       **{layout: par[layout]["peak_gib"]
+                                          for layout in ("dp2", "pair2", "zero2")}},
+        "nccl_dp_p50_ms": par["nccl"]["p50"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
@@ -3674,4 +4463,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-child"]:  # a rank of phase 16(b)-(c)
+        sys.exit(parallel_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -106,8 +106,8 @@ def test_unported_options_and_missing_card_raise(setup, tmp_path):
     with pytest.raises(ValueError):
         _port(model, quant="int4")
     assert _port(model, quant="int8").int8 is not None  # ported: builds
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(model, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # mesh serving is ported
+        _port(model, mesh=["cpu"], spatial=True)
     if not torch.cuda.is_available():
         # the entry points default to the card and never carry on on the CPU
         with pytest.raises(RuntimeError, match="device='cpu'"):

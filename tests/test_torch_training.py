@@ -332,16 +332,26 @@ def _gradient_tx():
     return optax.GradientTransformation(zeros, lambda grads, state, params=None: (zeros(grads), grads))
 
 
-def test_one_cps_step_matches_jax(jax_side, monkeypatch):
+@pytest.fixture(scope="module")
+def jax_one_step(jax_side):
+    """One JAX step from the scaled post-init state, in f32 and in f64 (x64
+    on, and the package's f32 casts widened), with the gradient as the
+    optimizer state: the start state, both new states, and the f32 step's
+    metrics and predictions.  Traced and compiled once per module."""
     tx = _gradient_tx()
     scaled = jax_side["scaled"]
     scaled = scaled.replace(opt_state_1=_np(tx.init(scaled.variables_1["params"])),
                             opt_state_2=_np(tx.init(scaled.variables_2["params"])))
     jnew, [(jm, jps, jpu)] = _jax_step(jax_side, tx, scaled, 1)
-    # the same JAX step in f64: x64 on, and the package's f32 casts widened
     with jax.enable_x64(True), mock.patch.object(jnp, "float32", jnp.float64):
         jnew64, _ = _jax_step(jax_side, tx, scaled, 1, np.float64)
     assert jnew64.opt_state_1["segmentation_head"]["Conv_0"]["kernel"].dtype == np.float64
+    return dict(scaled=scaled, jnew=jnew, jnew64=jnew64, jm=jm, jps=jps, jpu=jpu)
+
+
+def test_one_cps_step_matches_jax(jax_side, jax_one_step, monkeypatch):
+    scaled, jnew, jnew64 = jax_one_step["scaled"], jax_one_step["jnew"], jax_one_step["jnew64"]
+    jm, jps, jpu = jax_one_step["jm"], jax_one_step["jps"], jax_one_step["jpu"]
 
     st = _port(scaled)
     [(m, ps, pu)] = _port_step(st, jax_side["batches"][:1])

@@ -221,12 +221,17 @@ class Loader:
     ``cache_budget_bytes`` (estimated from the first item).  An error in
     the background thread is raised in the consumer.  ``device`` is "cuda"
     unless the caller passes "cpu", or None for host numpy batches.
+    ``shard=(i, n)``: ``batch_size`` is the global batch, and this loader
+    decodes and yields only the rows [i*b, (i+1)*b) of each global batch, b
+    = batch_size / n, from the same seeded order on every rank: the data
+    rank i's shard, as ``parallel.shard_batch_fn`` lays a batch out.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  device="cuda", prefetch: int = 2, workers: int = 0,
-                 cache_budget_bytes: int = 4 << 30):
+                 cache_budget_bytes: int = 4 << 30, shard: Optional[tuple] = None):
         self.dataset = dataset
+        self.shard = shard
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
@@ -266,6 +271,13 @@ class Loader:
         try:
             for b in range(len(self)):
                 idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+                if self.shard is not None:
+                    i, n = self.shard
+                    if len(idx) % n:
+                        raise ValueError(f"batch {b} of {len(idx)} items does not divide over "
+                                         f"{n} data ranks")
+                    per = len(idx) // n
+                    idx = idx[i * per:(i + 1) * per]
                 if pool is not None:
                     items = list(pool.map(self._get_item, (int(i) for i in idx)))
                 else:

@@ -5,11 +5,14 @@ counterpart of the JAX package's ``losses/cross_entropy.py``.
 weighted mean over the kept pixels, normalised by their summed weights.
 The sum of weights is floored at 1e-12, so a map with every pixel ignored
 gives 0 where torch's own loss gives NaN.  Computed in f32 with autocast
-off, whatever dtype the model emitted.
+off, whatever dtype the model emitted.  Inside ``parallel.data_parallel``
+the numerator and the denominator are those of the global batch.
 """
 from __future__ import annotations
 
 import torch
+
+from ..parallel.collectives import active_group, batch_sum
 
 
 def _nll(logp: torch.Tensor, target: torch.Tensor, ignore_index: int, weight):
@@ -24,7 +27,10 @@ def _nll(logp: torch.Tensor, target: torch.Tensor, ignore_index: int, weight):
         w = wvec[idx.squeeze(1)] * valid
     else:
         w = keep.float()
-    return torch.sum(nll * w) / torch.sum(w).clamp_min(1e-12)
+    if active_group() is None:
+        return torch.sum(nll * w) / torch.sum(w).clamp_min(1e-12)
+    num_den = batch_sum(torch.stack([torch.sum(nll * w), torch.sum(w)]))
+    return num_den[0] / num_den[1].clamp_min(1e-12)
 
 
 def cross_entropy_loss(pred: torch.Tensor, target: torch.Tensor, ignore_index: int = -100,

@@ -8,13 +8,15 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import batch_mean
 from ..utils.seg_tools import one_hot
 
 
 def dice_coefficient(pred: torch.Tensor, target: torch.Tensor, num_classes: int,
                      ignore_index=None) -> torch.Tensor:
     """pred (N, C, H, W) logits; target (N, H, W) integers -> per-class dice
-    (C,), averaged over the batch."""
+    (C,), averaged over the batch (the global batch inside
+    ``parallel.data_parallel``)."""
     with torch.autocast(pred.device.type, enabled=False):
         n, c = pred.shape[:2]
         pred = pred.reshape(n, c, -1).float()
@@ -31,7 +33,7 @@ def dice_coefficient(pred: torch.Tensor, target: torch.Tensor, num_classes: int,
             prd = torch.softmax(pred, dim=1)
         inter = torch.sum(prd * tgt, dim=2)  # (N, C)
         sum_sets = torch.sum(prd + tgt, dim=2)
-        return torch.mean(2 * inter / (sum_sets + 1e-6), dim=0)
+        return batch_mean(2 * inter / (sum_sets + 1e-6), dim=0)
 
 
 def dice_loss(pred: torch.Tensor, target: torch.Tensor, num_classes: int = 3, weight=None,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import batch_mean, batch_sum
+
 
 def focal_loss(pred, target, alpha=0.25, gamma=2.0, num_classes: int = 3, ignore_index=None,
                reduction: str = "sum", weight=None):
@@ -34,9 +36,9 @@ def focal_loss(pred, target, alpha=0.25, gamma=2.0, num_classes: int = 3, ignore
     if reduction == "none":
         return fl
     if reduction == "mean":
-        return torch.mean(fl)
+        return batch_mean(fl)
     if reduction == "sum":
-        return torch.sum(fl)
+        return batch_sum(torch.sum(fl))
     raise NotImplementedError(f"Invalid reduction mode: {reduction}")
 
 

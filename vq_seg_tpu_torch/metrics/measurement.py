@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import batch_gather
+
 
 def _labels_of(pred: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) scores or (N, H, W) labels -> labels."""
@@ -27,7 +29,9 @@ def confusion_matrix(pred: torch.Tensor, target: torch.Tensor, num_classes: int)
     ``bincount`` of the image-offset bin ids, without the device-to-host
     read of the largest id that ``torch.bincount`` makes on the card.  Ids
     outside [0, K*K), such as an ignored target, go to the last slot, which
-    is dropped, as a one-hot drops them."""
+    is dropped, as a one-hot drops them.  Inside ``parallel.data_parallel``
+    the matrices of every rank's images, in rank order: the metrics of the
+    global batch."""
     k = num_classes
     labels = _labels_of(pred)
     n = labels.shape[0]
@@ -37,7 +41,7 @@ def confusion_matrix(pred: torch.Tensor, target: torch.Tensor, num_classes: int)
     bins = torch.where(valid, cats + offset, torch.full_like(cats, n * k * k)).reshape(-1)
     counts = torch.zeros(n * k * k + 1, dtype=torch.float32, device=cats.device)
     counts.index_add_(0, bins, torch.ones_like(bins, dtype=torch.float32))
-    return counts[:-1].reshape(n, k, k)
+    return batch_gather(counts[:-1].reshape(n, k, k))
 
 
 def miou(conf_mat: torch.Tensor):

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import active_group, batch_sum
+
 PADDING_MODES = ("zeros", "reflect", "replicate", "circular")
 
 
@@ -94,11 +96,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     scratch, and is rescaled by (n - 1) / n, so no extra pass over the
     activations is made.  Eval mode, parameters and ``state_dict`` keys are
     ``nn.BatchNorm2d``'s; ``num_batches_tracked`` is not advanced (a set
-    ``momentum`` never reads it)."""
+    ``momentum`` never reads it).  Inside ``parallel.data_parallel`` the
+    training-mode statistics are those of the global batch (``_synced``)."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if active_group() is not None:
+            return self._synced(x)
         n = x.numel() // x.shape[1]
         scratch = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, self.running_mean, scratch, self.weight, self.bias, True,
@@ -106,6 +111,29 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():  # scratch = m * unbiased var
             self.running_var.mul_(1.0 - self.momentum).add_(scratch, alpha=(n - 1) / n)
         return y
+
+    def _synced(self, x):
+        """Train mode over the global batch of the active data-parallel
+        group (sync-BN): the per-channel sum and count, then the sum of
+        squared deviations from the global mean, each summed over the ranks
+        by ``batch_sum``; autograd carries the gradient back through both.
+        f32 statistics, the output in ``x``'s dtype."""
+        with torch.autocast(x.device.type, enabled=False):
+            xf = x.float()
+            c = x.shape[1]
+            count = xf.new_full((1,), float(x.numel() // c))
+            s1 = batch_sum(torch.cat([torch.sum(xf, dim=(0, 2, 3)), count]))
+            n = s1[c]
+            mean = s1[:c] / n
+            centered = xf - mean[None, :, None, None]
+            var = batch_sum(torch.sum(centered * centered, dim=(0, 2, 3))) / n
+            invstd = torch.rsqrt(var + self.eps)
+            y = centered * (invstd * self.weight)[None, :, None, None] + self.bias[None, :, None, None]
+            with torch.no_grad():  # flax's update: the biased variance
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+        return y.to(x.dtype)
 
 
 def batch_norm(channels: int, eps: float = 1e-5, momentum: float = 0.1) -> BatchNorm2d:

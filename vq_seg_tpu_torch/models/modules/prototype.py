@@ -19,6 +19,9 @@ entropy-filtered losses of the ``reptcps`` networks
   * The entropy filter keeps the pixels whose entropy is at most its
     ``percent``-ile, taken on the device (``torch.quantile``, numpy's
     ``linear`` method, as ``jnp.percentile``), so nothing is read back.
+  * Inside ``parallel.data_parallel`` the percentile, the class means, the
+    k-means init and ``ReliablePrototypeLossv2``'s mean are those of the
+    global batch.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.kmeans import kmeans, l2norm
+from ...parallel.collectives import batch_gather, batch_mean, batch_sum
 from ..layers import resize_bilinear, resize_nearest
 
 
@@ -72,7 +76,7 @@ def percentile(t: torch.Tensor, percent) -> torch.Tensor:
     entropy map, (8, 448, 448) = 1,605,632 at the shipped configs' batch
     and size."""
     q = float(np.float32(percent)) / 100.0
-    return torch.quantile(t.reshape(-1), q, interpolation="linear")
+    return torch.quantile(batch_gather(t.reshape(-1)), q, interpolation="linear")
 
 
 def entropy_mask(entropy: torch.Tensor, percent) -> torch.Tensor:
@@ -95,9 +99,9 @@ def _flatten_with_gt(x: torch.Tensor, gt: torch.Tensor):
 def class_mean_features(flat_x: torch.Tensor, flat_gt: torch.Tensor, num_classes: int):
     """Per-class mean row; a class with no rows gets zeros."""
     sums = torch.zeros(num_classes, flat_x.shape[1], dtype=flat_x.dtype, device=flat_x.device)
-    sums.index_add_(0, flat_gt, flat_x)
+    sums = batch_sum(sums.index_add(0, flat_gt, flat_x))
     cnt = torch.zeros(num_classes, dtype=flat_x.dtype, device=flat_x.device)
-    cnt.index_add_(0, flat_gt, torch.ones_like(flat_gt, dtype=flat_x.dtype))
+    cnt = batch_sum(cnt.index_add_(0, flat_gt, torch.ones_like(flat_gt, dtype=flat_x.dtype)))
     return sums / cnt.clamp_min(1.0)[:, None]
 
 
@@ -142,7 +146,7 @@ class _ProtoBase(nn.Module):
         if self.pt_init == "kmeans":
             if generator is None:
                 raise ValueError("the k-means prototype init needs a generator")
-            means, _ = kmeans(flat_x, self.num_classes, 10, generator=generator)
+            means, _ = kmeans(batch_gather(flat_x), self.num_classes, 10, generator=generator)
         elif self.pt_init == "class_means":
             means = class_mean_features(flat_x, flat_gt, self.num_classes)
         else:
@@ -219,7 +223,7 @@ class ReliablePrototypeLossv2(_MarginProtoBase):
             lg = torch.log(torch.exp(positive) / (sum_all + 1e-7) + 1e-7)
             if confidence_mask is not None:
                 lg = lg * confidence_mask
-            loss = -torch.mean(lg)
+            loss = -batch_mean(lg)
             if self.orthogonal_reg_weight > 0:
                 loss = loss + orthogonal_loss_fn(table) * self.orthogonal_reg_weight
         return loss
@@ -320,7 +324,7 @@ class OnlyCWPrototypeLoss(_MarginProtoBase):
             return
         if generator is None:
             raise ValueError("the k-means prototype init needs a generator")
-        means, _ = kmeans(flat_x, self.num_rows, 10, generator=generator)
+        means, _ = kmeans(batch_gather(flat_x), self.num_rows, 10, generator=generator)
         self.embedding.copy_(means)
 
     def forward(self, x, gt, percent, entropy, init_protos: bool = False,

@@ -23,6 +23,11 @@
     0 means the stage passes through (``VQIdentity``); ``quantize_stages``
     runs such a list over the stage features.
 
+Inside ``parallel.data_parallel`` every batch-wide quantity is that of the
+global batch: the counts behind the usage, the EMA's counts and sums, the
+restart's candidates (gathered in rank order, the global row order) and
+the k-means init's rows.
+
 Rows are flattened in (b, h, w) order, as the JAX package flattens NHWC.
 Each call returns (quantized NCHW, idx (B, H, W) int32, commitment loss,
 code usage %).
@@ -38,6 +43,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.kmeans import kmeans, l2norm
+from ...parallel.collectives import batch_gather, batch_sum
 from ...ops.vq import (METRICS, code_usage_percent, commitment_loss, cosine_prep,
                        quantize_ste, vq_assign)
 
@@ -116,7 +122,7 @@ class VectorQuantizer(nn.Module):
         if not self.kmeans_init:
             return
         with torch.autocast(x.device.type, enabled=False):
-            flat = _rows(x.float())
+            flat = batch_gather(_rows(x.float()))  # the global batch's rows
             feats = l2norm(flat) if self.distance == "cosine" else flat
             means, _ = kmeans(feats, self.num_embeddings, self.kmeans_iters,
                               use_cosine_sim=self.distance == "cosine", generator=generator)
@@ -134,7 +140,7 @@ class VectorQuantizer(nn.Module):
         k = self.num_embeddings
         feats = feats.detach().float()
         # index_add_ on the card sums with atomics, in no fixed order
-        sums = torch.zeros_like(self.embed_avg).index_add_(0, idx.long(), feats)
+        sums = batch_sum(torch.zeros_like(self.embed_avg).index_add_(0, idx.long(), feats))
         d = self.decay
         new_cs = d * self.cluster_size + (1.0 - d) * counts.float()
         new_ea = d * self.embed_avg + (1.0 - d) * sums
@@ -145,7 +151,9 @@ class VectorQuantizer(nn.Module):
             new_cb = l2norm(new_cb)
         if self.restart_threshold > 0:
             dead = new_cs < self.restart_threshold
-            err = torch.sum((feats - quantized) ** 2, dim=-1)
+            # candidates from the global batch, in its row order
+            err = batch_gather(torch.sum((feats - quantized) ** 2, dim=-1))
+            feats = batch_gather(feats)
             # a stable sort puts the lower row first among equal residuals,
             # as the JAX package's top_k does; torch.topk promises no order
             top = torch.sort(err, descending=True, stable=True).indices[:min(k, err.shape[0])]
@@ -176,6 +184,7 @@ class VectorQuantizer(nn.Module):
                 flat, cb = cosine_prep(flat, cb)
             idx, quantized, counts = vq_assign(flat.contiguous(), cb.contiguous(),
                                                self.distance)
+            counts = batch_sum(counts)  # the global batch's code usage
             usage = code_usage_percent(counts)
             if train and self.ema and not init_codebook and getattr(_gate, "on", False):
                 self.ema_update_(flat, idx, quantized, counts)

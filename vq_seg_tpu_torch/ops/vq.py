@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import batch_mean
 from .kmeans import l2norm
 from .vq_cuda import vq_assign_cuda
 
@@ -70,8 +71,9 @@ def quantize_ste(x: torch.Tensor, quantized: torch.Tensor) -> torch.Tensor:
 
 def commitment_loss(x: torch.Tensor, quantized_ste: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
     """mse(detach(quantized), x) * weight: pulls the encoder toward the frozen
-    codebook."""
-    return weight * torch.mean((quantized_ste.detach() - x) ** 2)
+    codebook.  The mean is over the global batch inside
+    ``parallel.data_parallel``."""
+    return weight * batch_mean((quantized_ste.detach() - x) ** 2)
 
 
 def cosine_prep(x: torch.Tensor, codebook: torch.Tensor):

@@ -16,6 +16,8 @@
   before batch k's labels are read.  On the card the host buffers are
   pinned, copies are ``non_blocking`` and each batch records an event that
   its fetch waits on.
+* ``mesh=[devices]`` serves with one replica of the weights per device
+  from one process, each batch split in order over the replicas.
 * PyTorch runs eagerly, so there is no ahead-of-time compile.
 
 Example::
@@ -113,6 +115,23 @@ class _Int8Weights:
                 + sum(v.numel() * v.element_size() for v in self.vectors.values()))
 
 
+class _Replica:
+    """One copy of the weights on one device, with its two pinned host
+    slots on a card (with one batch in flight, a slot is rewritten only
+    after the fetch of the batch that used it waited on its event)."""
+
+    def __init__(self, model, device, batch: int, input_hw, int8: bool):
+        self.device = device
+        self.int8 = _Int8Weights(model, device) if int8 else None
+        self.model = self.int8.shell if int8 else model.to(device).eval()
+        self.slot = 0
+        self.host_in = self.host_out = None
+        if device.type == "cuda":
+            self.host_in = [torch.zeros((batch, *input_hw, 3), dtype=torch.uint8).pin_memory()
+                            for _ in range(2)]
+            self.host_out = [None, None]
+
+
 class Predictor:
     """Fixed-shape segmentation predictor.
 
@@ -127,7 +146,13 @@ class Predictor:
                 dequantised to bf16 inside every forward; implies ``half``.
                 The caller's model is left as it was.
     device:     "cuda" unless the caller asks for "cpu".
-    mesh, spatial: multi-card serving, not ported yet.
+    mesh:       a list of devices (``["cuda:0", "cuda:1"]``): one process
+                drives one replica of the weights on each, the JAX
+                package's batch-sharded mesh serving.  ``batch_size`` must
+                divide by the number of devices; each batch is split in
+                order over the replicas and the labels come back in order.
+                ``device`` is then ignored.
+    spatial:    batch-1 spatial serving, not ported yet.
     """
 
     def __init__(self, model, *, input_hw: Tuple[int, int], batch_size: int = 1,
@@ -135,31 +160,24 @@ class Predictor:
                  device="cuda", mesh=None, spatial: bool = False, quant: Optional[str] = None):
         if quant not in (None, "int8"):
             raise ValueError(f"quant must be None or 'int8', got {quant!r}")
-        if mesh is not None or spatial:
+        if spatial:
             raise NotImplementedError(
-                "mesh and spatial serving are not ported yet "
-                "(ROADMAP.md, queue 1, item 12)")
-        self.device = resolve_device(device)
+                "spatial serving (per-layer halo exchange) is not ported yet "
+                "(ROADMAP.md, queue 1, item 21)")
+        devices = [resolve_device(d) for d in (mesh if mesh is not None else [device])]
         self.batch_size = int(batch_size)
+        if self.batch_size % len(devices):
+            raise ValueError(f"batch_size {self.batch_size} must divide by the {len(devices)} "
+                             "devices of the mesh")
+        self.device = devices[0]
         self.input_hw = tuple(input_hw)
         self.output_hw = tuple(output_hw) if output_hw is not None else None
-        self.int8 = None
-        if quant == "int8":
-            self.int8 = _Int8Weights(model, self.device)
-            self.model = self.int8.shell
-            half = True
-        else:
-            self.model = model.to(self.device).eval()
-        self.half = bool(half)
-        self._cuda = self.device.type == "cuda"
-        self._slot = 0
-        self._host_in = self._host_out = None
-        if self._cuda:
-            # two slots: with one batch in flight, a slot is rewritten only
-            # after the fetch of the batch that used it waited on its event
-            self._host_in = [torch.zeros((self.batch_size, *self.input_hw, 3),
-                                         dtype=torch.uint8).pin_memory() for _ in range(2)]
-            self._host_out = [None, None]
+        per = self.batch_size // len(devices)
+        self.replicas = [_Replica(model if i == 0 else copy.deepcopy(model), d, per,
+                                  self.input_hw, quant == "int8")
+                         for i, d in enumerate(devices)]
+        self.model, self.int8 = self.replicas[0].model, self.replicas[0].int8
+        self.half = bool(half) or quant == "int8"
 
     @classmethod
     def from_checkpoint(cls, cfg, weights_path: str, *, device="cuda", **kw):
@@ -174,26 +192,29 @@ class Predictor:
         return cls(model, device=device, **kw)
 
     @torch.no_grad()
-    def logits(self, img_u8: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) uint8 on the device -> f32 logits (B, classes, oh, ow)."""
+    def logits(self, img_u8: torch.Tensor, replica: Optional[_Replica] = None) -> torch.Tensor:
+        """(B, H, W, 3) uint8 on the device -> f32 logits (B, classes, oh, ow),
+        by ``replica`` (default the first)."""
+        rep = replica or self.replicas[0]
         x = img_u8.permute(0, 3, 1, 2).contiguous().float() / 255.0
-        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.half):
-            if self.int8 is not None:
-                out = torch.func.functional_call(self.model, self.int8.params(), (x,))
+        with torch.autocast(rep.device.type, dtype=torch.bfloat16, enabled=self.half):
+            if rep.int8 is not None:
+                out = torch.func.functional_call(rep.model, rep.int8.params(), (x,))
             else:
-                out = self.model(x)
+                out = rep.model(x)
         logits = (out[0] if isinstance(out, tuple) else out).float()
         if self.output_hw is not None and tuple(logits.shape[-2:]) != self.output_hw:
             logits = resize_bilinear(logits, self.output_hw)
         return logits
 
-    def _forward(self, img_u8: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(self.logits(img_u8), dim=1).to(torch.uint8)
+    def _forward(self, img_u8: torch.Tensor, replica: Optional[_Replica] = None) -> torch.Tensor:
+        return torch.argmax(self.logits(img_u8, replica), dim=1).to(torch.uint8)
 
     # -- dispatch/fetch split (predict_stream pipelines across it) ---------
 
     def _dispatch(self, imgs: np.ndarray):
-        """Enqueue one forward; returns a handle for ``_fetch``."""
+        """Enqueue one forward on every replica; returns a handle for
+        ``_fetch``."""
         imgs = np.asarray(imgs)
         if imgs.ndim != 4 or imgs.shape[1:3] != self.input_hw or imgs.shape[3] != 3:
             raise ValueError(f"expected (B, {self.input_hw[0]}, {self.input_hw[1]}, 3) "
@@ -202,31 +223,41 @@ class Predictor:
         if n > self.batch_size:
             raise ValueError(f"batch {n} > serving batch_size {self.batch_size}")
         imgs = torch.from_numpy(np.ascontiguousarray(imgs, dtype=np.uint8))
-        if not self._cuda:
-            dev = torch.zeros((self.batch_size, *self.input_hw, 3), dtype=torch.uint8)
-            dev[:n] = imgs
-            return self._forward(dev), n, None
-        slot = self._slot
-        self._slot ^= 1
-        host = self._host_in[slot]
-        host[:n] = imgs
-        host[n:] = 0
-        dev = host.to(self.device, non_blocking=True)
-        labels = self._forward(dev)
-        out = self._host_out[slot]
-        if out is None or out.shape != labels.shape:
-            out = self._host_out[slot] = torch.empty(labels.shape, dtype=torch.uint8).pin_memory()
-        out.copy_(labels, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return out, n, event
+        per = self.batch_size // len(self.replicas)
+        parts = []
+        for i, rep in enumerate(self.replicas):
+            rows = imgs[i * per:(i + 1) * per]  # this replica's images, the tail zero
+            if rep.device.type != "cuda":
+                dev = torch.zeros((per, *self.input_hw, 3), dtype=torch.uint8)
+                dev[:rows.shape[0]] = rows
+                parts.append((self._forward(dev, rep), None))
+                continue
+            slot = rep.slot
+            rep.slot ^= 1
+            host = rep.host_in[slot]
+            host[:rows.shape[0]] = rows
+            host[rows.shape[0]:] = 0
+            dev = host.to(rep.device, non_blocking=True)
+            labels = self._forward(dev, rep)
+            out = rep.host_out[slot]
+            if out is None or out.shape != labels.shape:
+                out = rep.host_out[slot] = torch.empty(labels.shape,
+                                                       dtype=torch.uint8).pin_memory()
+            out.copy_(labels, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(rep.device))
+            parts.append((out, event))
+        return parts, n
 
     @staticmethod
     def _fetch(handle) -> np.ndarray:
-        labels, n, event = handle
-        if event is not None:
-            event.synchronize()
-        return labels[:n].numpy().copy()
+        parts, n = handle
+        for _, event in parts:
+            if event is not None:
+                event.synchronize()
+        if len(parts) == 1:
+            return parts[0][0][:n].numpy().copy()
+        return np.concatenate([labels.numpy() for labels, _ in parts])[:n]
 
     def __call__(self, imgs: np.ndarray) -> np.ndarray:
         """(B <= batch_size, H, W, 3) uint8 -> (B, oh, ow) uint8 class ids."""

@@ -55,6 +55,9 @@ from ..metrics.measurement import confusion_matrix, miou
 from ..models.layers import resize_bilinear
 from ..models.modules.vector_quantizer import ema_updates
 from ..models.networks import make_model
+from ..parallel.collectives import all_gather, all_reduce_, average_gradients, data_parallel
+from ..parallel.mesh import Mesh
+from ..parallel.zero import zero_adam
 from ..utils import visualize
 from ..utils.ckpoints import (fetch_ckpt_tree, latest_ckpt, load_full, save_ckpoints, save_tar,
                               wait_for_saves)
@@ -74,20 +77,29 @@ IGNORE = 255
 class CPSTrainState:
     """The two models, their optimizers, the LR schedule, the number of
     steps taken (micro-steps under gradient accumulation, as the JAX
-    package's ``state.step`` counts them) and the accumulation's k."""
+    package's ``state.step`` counts them) and the accumulation's k.  On a
+    pair-sharded mesh a rank holds one model and its optimizer, and the
+    other two fields are None."""
 
-    model_1: nn.Module
-    model_2: nn.Module
-    opt_1: torch.optim.Optimizer
-    opt_2: torch.optim.Optimizer
+    model_1: Optional[nn.Module]
+    model_2: Optional[nn.Module]
+    opt_1: Optional[torch.optim.Optimizer]
+    opt_2: Optional[torch.optim.Optimizer]
     schedule: Callable[[int], float]
     step: int = 0
     grad_accum_steps: int = 1
+    replicas_differed: int = 0  # tensors the start-up broadcast changed (mesh)
 
     @property
     def updates(self) -> int:
         """Optimizer updates applied: the count the LR schedule reads."""
         return self.step // self.grad_accum_steps
+
+    def held(self) -> list:
+        """(index, model, optimizer) of each model this process holds."""
+        return [(i, m, o) for i, (m, o) in enumerate(((self.model_1, self.opt_1),
+                                                     (self.model_2, self.opt_2)))
+                if m is not None]
 
 
 _ADAM = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
@@ -155,18 +167,38 @@ class MultiStepAdam(torch.optim.Adam):
                           for i, a in accs.items()}
 
 
-def _adam(params, grad_accum_steps: int = 1) -> torch.optim.Optimizer:
+def _adam(params, grad_accum_steps: int = 1, zero_group=None) -> torch.optim.Optimizer:
     """``optax.adam(schedule, b1=0.9, b2=0.999)``: eps 1e-8, no weight decay;
     the step writes the rate into the param groups before each update.
-    With ``grad_accum_steps`` > 1, wrapped as ``optax.MultiSteps``."""
+    With ``grad_accum_steps`` > 1, wrapped as ``optax.MultiSteps``; with a
+    ``zero_group``, ZeRO-1 over it (``parallel/zero.py``)."""
+    if zero_group is not None:
+        return zero_adam(params, zero_group, **_ADAM)
     if grad_accum_steps > 1:
         return MultiStepAdam(params, grad_accum_steps)
     return torch.optim.Adam(params, **_ADAM)
 
 
+@torch.no_grad()
+def broadcast_parameters_(module: nn.Module, mesh: Mesh) -> int:
+    """Broadcast ``module``'s parameters and buffers from the first rank of
+    this rank's data group (every member must call it); returns how many
+    tensors the broadcast changed here."""
+    src = mesh.rank_of(0, mesh.model_index)
+    changed = 0
+    for t in list(module.parameters()) + list(module.buffers()):
+        sent = t.detach().clone()
+        torch.distributed.broadcast(sent, src, group=mesh.data_group)
+        if not torch.equal(sent, t):
+            changed += 1
+            t.copy_(sent)
+    return changed
+
+
 def create_cps_state(model_cfg, schedule: Callable[[int], float], *, seed: int = 0,
                      encoder_weights: Optional[str] = None, init_weights: bool = False,
-                     grad_accum_steps: int = 1, device="cuda") -> CPSTrainState:
+                     grad_accum_steps: int = 1, device="cuda", mesh: Optional[Mesh] = None,
+                     zero: bool = False) -> CPSTrainState:
     """Two models drawn from two generators seeded from ``seed``, each with
     its Adam (a ``MultiStepAdam`` with ``grad_accum_steps`` > 1).
     ``encoder_weights`` (a tag or a .pth path, ``utils/torch_weights.py``)
@@ -174,34 +206,58 @@ def create_cps_state(model_cfg, schedule: Callable[[int], float], *, seed: int =
     resolves to no file warns and leaves the drawn weights.  Then
     ``init_weights`` re-draws the decoder and head convs of each model
     from its own generator, as the JAX package does after its encoder
-    load."""
+    load.
+
+    With a ``mesh`` each rank draws the models it holds (both, or on a
+    pair-sharded mesh model m+1 alone) from the same generators, and then
+    takes the parameters and buffers of its data group's first rank
+    (``broadcast_parameters_``; ``state.replicas_differed`` counts the
+    tensors that the broadcast changed, 0 when the draws agreed).
+    ``zero`` shards each Adam over the model's data group (ZeRO-1)."""
     device = resolve_device(device)
     pretrained = (resolve_pretrained(encoder_weights, model_cfg["params"].get("encoder_name"))
                   if encoder_weights else None)
-    models = []
+    models, opts, differed = [], [], 0
     for i in range(2):
+        if mesh is not None and mesh.pair and i != mesh.model_index:
+            models.append(None)
+            opts.append(None)
+            continue
         generator = torch.Generator().manual_seed(2 * seed + i)
         model = make_model(model_cfg, device="cpu", generator=generator)
         if pretrained is not None:
             load_encoder_weights(pretrained_encoder(model), pretrained)
         if init_weights:
             reinit_modules([model.core.decoder, model.segmentation_head], generator)
-        models.append(model.to(device).train())
-    return CPSTrainState(models[0], models[1], _adam(models[0].parameters(), grad_accum_steps),
-                         _adam(models[1].parameters(), grad_accum_steps), schedule,
-                         grad_accum_steps=grad_accum_steps)
+        model = model.to(device).train()
+        if mesh is not None:
+            differed += broadcast_parameters_(model, mesh)
+        models.append(model)
+        opts.append(_adam(model.parameters(), grad_accum_steps,
+                          mesh.data_group if zero and mesh is not None else None))
+    return CPSTrainState(models[0], models[1], opts[0], opts[1], schedule,
+                         grad_accum_steps=grad_accum_steps, replicas_differed=differed)
 
 
 def cps_init_phase(state: CPSTrainState, l_img: torch.Tensor, l_target: torch.Tensor,
-                   extra: float, *, seed: int = 0, half: bool = False) -> CPSTrainState:
+                   extra: float, *, seed: int = 0, half: bool = False,
+                   mesh: Optional[Mesh] = None) -> CPSTrainState:
     """The one-time data-dependent init on the first labeled batch: one
     train-mode forward of each model (batch-stat BN, running stats updated
     once) that sets its codebooks to the k-means of its encoder features,
     quantizes with them, and sets its prototype table to the k-means of the
     decoder output.  Each model draws from its own generator.  ``extra`` is
     the forward's third argument: the flagship's confidence threshold, or
-    the ``reptcps`` networks' entropy percent (100 at init)."""
-    for i, model in enumerate((state.model_1, state.model_2)):
+    the ``reptcps`` networks' entropy percent (100 at init).
+
+    With a ``mesh`` the ranks' shards are gathered over the data group into
+    the global batch, and each rank runs the init of the models it holds
+    on all of it, replicated: the running stats, codebooks and prototype
+    tables are the single-process ones on every rank."""
+    if mesh is not None:
+        l_img = all_gather(l_img, mesh.data_group)
+        l_target = all_gather(l_target, mesh.data_group)
+    for i, model, _ in state.held():
         generator = torch.Generator().manual_seed(2 * seed + i)
         was_training = model.training
         model.train()
@@ -213,17 +269,39 @@ def cps_init_phase(state: CPSTrainState, l_img: torch.Tensor, l_target: torch.Te
     return state
 
 
+def _apply_adam(state: CPSTrainState):
+    """Each held optimizer's update at ``lr = schedule(updates applied so
+    far)``, written into its param groups (a ZeRO wrapper hands them to its
+    local Adam); then one more step taken."""
+    lr = state.schedule(state.updates)
+    for _, _, opt in state.held():
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+    state.step += 1
+
+
 def make_cps_train_step(dice_loss, *, num_classes: int, confidence_threshold: float = 0.7,
                         cps_loss_weight: float = 1.0, commitment_loss_weight: float = 1.0,
                         prototype_loss_weight: float = 0.01, ce_weight=None,
-                        half: bool = False):
+                        half: bool = False, mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, ul_img) -> (state, metrics,
     pred_sup_1, pred_ul_1)`` for (x, gt, th)-signature networks.  Images are
     (N, 3, H, W) floats, labels (N, H, W) integers; ``state`` is updated in
     place.  ``metrics`` holds device tensors: loss, cps_loss, sup_loss_1,
     sup_loss_2, commitment_loss, prototype_loss, miou, iou_list and
-    code_usage."""
+    code_usage.
+
+    With a data-parallel ``mesh`` (``n_model`` 1) each rank passes its shard
+    of the global batch: the forwards and losses run inside
+    ``data_parallel`` over the data group, so every loss term and metric is
+    the global batch's, the same on every rank; the two models' gradients
+    are then averaged over the group in buckets, and each rank takes the
+    same two Adam steps.  Predictions are this rank's rows."""
     th = confidence_threshold
+    if mesh is not None and mesh.pair:
+        raise ValueError("a pair-sharded mesh takes make_cps_train_step_pairsharded")
+    group = mesh.data_group if mesh is not None else None
 
     def ce(pred, target):
         return cross_entropy_loss(pred, target, ignore_index=IGNORE, weight=ce_weight)
@@ -232,57 +310,147 @@ def make_cps_train_step(dice_loss, *, num_classes: int, confidence_threshold: fl
         m1, m2 = state.model_1, state.model_2
         modes = (m1.training, m2.training)
         device_type = l_img.device.type
-        try:
-            m1.eval()
-            m2.eval()
-            with torch.no_grad(), torch.autocast(device_type, dtype=torch.bfloat16,
-                                                 enabled=half):
-                pseudo_1_score = m1(ul_img)[0]
-                pseudo_2_score = m2(ul_img)[0]
-            m1.train()
-            m2.train()
-            # an ema codebook updates after each train pass: the next pass of
-            # the same model quantizes with it (sup 1, sup 2, unsup 1, unsup 2)
-            with ema_updates(), torch.autocast(device_type, dtype=torch.bfloat16, enabled=half):
-                pred_sup_1, c_l1, u_l1, pl_l1 = m1(l_img, l_target, th, train=True)
-                pred_sup_2, c_l2, u_l2, pl_l2 = m2(l_img, l_target, th, train=True)
-                pred_ul_1, c_ul1, u_ul1, pl_ul1 = m1(ul_img, pseudo_2_score, th, train=True)
-                pred_ul_2, c_ul2, u_ul2, pl_ul2 = m2(ul_img, pseudo_1_score, th, train=True)
-        finally:
-            m1.train(modes[0])
-            m2.train(modes[1])
+        with data_parallel(group):
+            try:
+                m1.eval()
+                m2.eval()
+                with torch.no_grad(), torch.autocast(device_type, dtype=torch.bfloat16,
+                                                     enabled=half):
+                    pseudo_1_score = m1(ul_img)[0]
+                    pseudo_2_score = m2(ul_img)[0]
+                m1.train()
+                m2.train()
+                # an ema codebook updates after each train pass: the next pass
+                # of the same model quantizes with it (sup 1, sup 2, unsup 1,
+                # unsup 2)
+                with ema_updates(), torch.autocast(device_type, dtype=torch.bfloat16,
+                                                   enabled=half):
+                    pred_sup_1, c_l1, u_l1, pl_l1 = m1(l_img, l_target, th, train=True)
+                    pred_sup_2, c_l2, u_l2, pl_l2 = m2(l_img, l_target, th, train=True)
+                    pred_ul_1, c_ul1, u_ul1, pl_ul1 = m1(ul_img, pseudo_2_score, th, train=True)
+                    pred_ul_2, c_ul2, u_ul2, pl_ul2 = m2(ul_img, pseudo_1_score, th, train=True)
+            finally:
+                m1.train(modes[0])
+                m2.train(modes[1])
 
-        pred_1 = torch.cat([pred_sup_1, pred_ul_1]).float()
-        pred_2 = torch.cat([pred_sup_2, pred_ul_2]).float()
-        with torch.no_grad():
-            filt_1 = confidence_filtered_pseudo(pred_1, torch.argmax(pred_1, dim=1), th, IGNORE)
-            filt_2 = confidence_filtered_pseudo(pred_2, torch.argmax(pred_2, dim=1), th, IGNORE)
-        cps_loss = (0.5 * ce(pred_1, filt_2) + 0.5 * ce(pred_2, filt_1)
-                    + dice_loss(pred_1, filt_2) + dice_loss(pred_2, filt_1))
-        sup_loss_1 = 0.5 * ce(pred_sup_1, l_target) + dice_loss(pred_sup_1, l_target)
-        sup_loss_2 = 0.5 * ce(pred_sup_2, l_target) + dice_loss(pred_sup_2, l_target)
-        commitment = (c_l1 + c_l2 + c_ul1 + c_ul2) * commitment_loss_weight
-        prototype = (pl_l1 + pl_l2 + pl_ul1 + pl_ul2) * prototype_loss_weight
-        loss = sup_loss_1 + sup_loss_2 + cps_loss_weight * cps_loss + commitment + prototype
+            pred_1 = torch.cat([pred_sup_1, pred_ul_1]).float()
+            pred_2 = torch.cat([pred_sup_2, pred_ul_2]).float()
+            with torch.no_grad():
+                filt_1 = confidence_filtered_pseudo(pred_1, torch.argmax(pred_1, dim=1), th,
+                                                    IGNORE)
+                filt_2 = confidence_filtered_pseudo(pred_2, torch.argmax(pred_2, dim=1), th,
+                                                    IGNORE)
+            cps_loss = (0.5 * ce(pred_1, filt_2) + 0.5 * ce(pred_2, filt_1)
+                        + dice_loss(pred_1, filt_2) + dice_loss(pred_2, filt_1))
+            sup_loss_1 = 0.5 * ce(pred_sup_1, l_target) + dice_loss(pred_sup_1, l_target)
+            sup_loss_2 = 0.5 * ce(pred_sup_2, l_target) + dice_loss(pred_sup_2, l_target)
+            commitment = (c_l1 + c_l2 + c_ul1 + c_ul2) * commitment_loss_weight
+            prototype = (pl_l1 + pl_l2 + pl_ul1 + pl_ul2) * prototype_loss_weight
+            loss = sup_loss_1 + sup_loss_2 + cps_loss_weight * cps_loss + commitment + prototype
 
-        state.opt_1.zero_grad(set_to_none=True)
-        state.opt_2.zero_grad(set_to_none=True)
-        loss.backward()
-        lr = state.schedule(state.updates)
-        for opt in (state.opt_1, state.opt_2):
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
-        state.step += 1
+            state.opt_1.zero_grad(set_to_none=True)
+            state.opt_2.zero_grad(set_to_none=True)
+            loss.backward()
+            if group is not None:
+                average_gradients(list(m1.parameters()) + list(m2.parameters()), group)
+            _apply_adam(state)
 
-        with torch.no_grad():
-            step_miou, iou_list = miou(confusion_matrix(pred_sup_1, l_target, num_classes))
-            metrics = dict(loss=loss.detach(), cps_loss=cps_loss.detach(),
-                           sup_loss_1=sup_loss_1.detach(), sup_loss_2=sup_loss_2.detach(),
-                           commitment_loss=commitment.detach(),
-                           prototype_loss=prototype.detach(), miou=step_miou,
-                           iou_list=iou_list, code_usage=(u_l1 + u_l2 + u_ul1 + u_ul2) / 4.0)
+            with torch.no_grad():
+                step_miou, iou_list = miou(confusion_matrix(pred_sup_1, l_target, num_classes))
+                metrics = dict(loss=loss.detach(), cps_loss=cps_loss.detach(),
+                               sup_loss_1=sup_loss_1.detach(), sup_loss_2=sup_loss_2.detach(),
+                               commitment_loss=commitment.detach(),
+                               prototype_loss=prototype.detach(), miou=step_miou,
+                               iou_list=iou_list,
+                               code_usage=(u_l1 + u_l2 + u_ul1 + u_ul2) / 4.0)
         return state, metrics, pred_sup_1.detach(), pred_ul_1.detach()
+
+    return train_step
+
+
+def make_cps_train_step_pairsharded(dice_loss, mesh: Mesh, *, num_classes: int,
+                                    confidence_threshold: float = 0.7,
+                                    cps_loss_weight: float = 1.0,
+                                    commitment_loss_weight: float = 1.0,
+                                    prototype_loss_weight: float = 0.01, ce_weight=None,
+                                    half: bool = False):
+    """The CPS step with each model on its own ranks, the JAX package's
+    ``make_cps_train_step_pairsharded``: rank (d, m) holds model m+1 and the
+    shard d of the global batch.
+
+      * its model's eval-mode pseudo scores are swapped with the partner
+        rank (d, 1-m) (an all-gather on the pair group, JAX's
+        ``ppermute``): each model trains its unlabelled pass on the other's;
+      * the confidence-filtered CPS targets are swapped the same way and
+        enter the loss without gradient;
+      * each rank differentiates its own model's terms, over the global
+        batch of its data group (``data_parallel``, sync-BN included),
+        averages the gradients over that group and takes its own Adam step;
+      * the metrics sum the pair's terms (JAX's ``psum`` over ``model``):
+        one all-gather of the scalars on the pair group.  ``miou`` and
+        ``iou_list`` are model 1's, as in the single-process step.
+
+    Returns ``(state, metrics, pred_sup, pred_ul)`` with this rank's model's
+    predictions of its rows."""
+    th = confidence_threshold
+    m = mesh.model_index
+
+    def ce(pred, target):
+        return cross_entropy_loss(pred, target, ignore_index=IGNORE, weight=ce_weight)
+
+    def swap(t):
+        """The partner's ``t`` (same shape), over the pair group."""
+        return all_gather(t, mesh.pair_group).chunk(2)[1 - m]
+
+    def train_step(state: CPSTrainState, l_img, l_target, ul_img):
+        [(_, model, opt)] = state.held()
+        was_training = model.training
+        device_type = l_img.device.type
+        with data_parallel(mesh.data_group):
+            try:
+                model.eval()
+                with torch.no_grad(), torch.autocast(device_type, dtype=torch.bfloat16,
+                                                     enabled=half):
+                    pseudo_other = swap(model(ul_img)[0])
+                model.train()
+                with ema_updates(), torch.autocast(device_type, dtype=torch.bfloat16,
+                                                   enabled=half):
+                    pred_sup, c_l, u_l, pl_l = model(l_img, l_target, th, train=True)
+                    pred_ul, c_ul, u_ul, pl_ul = model(ul_img, pseudo_other, th, train=True)
+            finally:
+                model.train(was_training)
+
+            pred = torch.cat([pred_sup, pred_ul]).float()
+            with torch.no_grad():
+                filt_other = swap(confidence_filtered_pseudo(pred, torch.argmax(pred, dim=1),
+                                                             th, IGNORE))
+            cps_mine = 0.5 * ce(pred, filt_other) + dice_loss(pred, filt_other)
+            sup_mine = 0.5 * ce(pred_sup, l_target) + dice_loss(pred_sup, l_target)
+            commit_mine = (c_l + c_ul) * commitment_loss_weight
+            proto_mine = (pl_l + pl_ul) * prototype_loss_weight
+            loss_mine = sup_mine + cps_loss_weight * cps_mine + commit_mine + proto_mine
+
+            opt.zero_grad(set_to_none=True)
+            loss_mine.backward()
+            average_gradients(model.parameters(), mesh.data_group)
+            _apply_adam(state)
+
+            with torch.no_grad():
+                step_miou, iou_list = miou(confusion_matrix(pred_sup, l_target, num_classes))
+                mine = torch.cat([torch.stack([sup_mine, cps_mine, commit_mine, proto_mine,
+                                               step_miou]).float(), iou_list.float(),
+                                  (u_l + u_ul).float()])
+                pair = all_gather(mine[None], mesh.pair_group)  # row m: model m+1's
+                sup, cps, commit, proto = pair[:, 0], pair[:, 1], pair[:, 2], pair[:, 3]
+                k = iou_list.shape[0]
+                cps_loss = cps[0] + cps[1]
+                metrics = dict(loss=torch.sum(sup + commit + proto) + cps_loss_weight * cps_loss,
+                               cps_loss=cps_loss, sup_loss_1=sup[0], sup_loss_2=sup[1],
+                               commitment_loss=commit[0] + commit[1],
+                               prototype_loss=proto[0] + proto[1], miou=pair[0, 4],
+                               iou_list=pair[0, 5:5 + k],
+                               code_usage=(pair[0, 5 + k:] + pair[1, 5 + k:]) / 4.0)
+        return state, metrics, pred_sup.detach(), pred_ul.detach()
 
     return train_step
 
@@ -354,22 +522,55 @@ def _adam_step(opt_state: dict) -> int:
 
 
 def restore_cps_state(state: CPSTrainState, ck: dict) -> CPSTrainState:
-    """Load a checkpoint contract into ``state``: both models and, unless
-    it is a light snapshot, both optimizers, and ``state.step`` from Adam's
+    """Load a checkpoint contract into ``state``: the models it holds and,
+    unless it is a light snapshot, their optimizers (a ZeRO wrapper keeps
+    its shard of the full state), and ``state.step`` from Adam's
     per-parameter step count (the updates) times ``grad_accum_steps`` plus
     the micro-steps of the running mean, so that the LR continues at
     ``schedule(updates)``.  The contract stores no step of its own."""
-    state.model_1.load_state_dict(ck["model_1"])
-    state.model_2.load_state_dict(ck["model_2"])
-    if ck.get("optimizer_1") is not None:
-        state.opt_1.load_state_dict(ck["optimizer_1"])
-        state.opt_2.load_state_dict(ck["optimizer_2"])
+    full = ck.get("optimizer_1") is not None
+    for i, model, opt in state.held():
+        model.load_state_dict(ck[f"model_{i + 1}"])
+        if full:  # a ZeRO wrapper writes None over the other ranks' entries: give it a copy
+            sd = ck[f"optimizer_{i + 1}"]
+            opt.load_state_dict({**sd, "state": dict(sd["state"])})
+    if full:
         state.step = (_adam_step(ck["optimizer_1"]) * state.grad_accum_steps
                       + int(ck["optimizer_1"].get("mini_step", 0)))
     else:
         print("resume: the checkpoint has no optimizer state (a light snapshot): "
               "continuing with fresh Adam moments from step 0")
     return state
+
+
+def mesh_ckpt_tree(state: CPSTrainState, mesh: Mesh, epoch: int, batch_idx: int,
+                   include_optimizers: bool = True) -> Optional[dict]:
+    """The checkpoint contract of a mesh's state, on the host of its main
+    rank (None on the others), the same contract a single process writes.
+    Every rank of the mesh calls it: a ZeRO optimizer consolidates its
+    state on its data group's first rank (a collective), and on a
+    pair-sharded mesh rank (0, 1) sends model 2's part to rank (0, 0)."""
+    if include_optimizers:
+        for _, _, opt in state.held():
+            if hasattr(opt, "consolidate_state_dict"):
+                opt.consolidate_state_dict(to=0)
+    if mesh.data_index != 0:
+        return None
+    part = {}
+    for i, model, opt in state.held():
+        part[f"model_{i + 1}"] = model.state_dict()
+        if include_optimizers:
+            part[f"optimizer_{i + 1}"] = opt.state_dict()
+    part = fetch_ckpt_tree(**{"model_1": None, "model_2": None, "optimizer_1": None,
+                              "optimizer_2": None, **part}, epoch=epoch, batch_idx=batch_idx,
+                           include_optimizers=include_optimizers)
+    if mesh.pair:
+        sent = [part if mesh.model_index == 1 else None]
+        torch.distributed.broadcast_object_list(sent, mesh.rank_of(0, 1),
+                                                group=mesh.pair_group)
+        if mesh.model_index == 0:
+            part.update({k: v for k, v in sent[0].items() if k.endswith("_2")})
+    return part if mesh.is_main else None
 
 
 def model_cfg_with_bn(cfg):
@@ -406,16 +607,17 @@ def epoch_summary(tag: Optional[str], epoch: int, sums: dict, n: int, seconds: f
     return avg, line
 
 
-def semi_loaders(cfg, device):
+def semi_loaders(cfg, device, shard: Optional[tuple] = None):
     """The labelled and unlabelled training loaders, seeds 0 and 1.
     workers=4 spreads the cold epoch's PNG decode; the RAM cache serves the
-    later epochs."""
+    later epochs.  ``shard`` (data index, data ranks): each global batch of
+    ``cfg.train.batch_size`` yields this rank's rows only."""
     root = os.path.join(cfg.train.data_dir, "train")
     bs = cfg.train.batch_size
     sup = BaseDataset(root, "labelled", batch_size=bs, resize=cfg.resize)
     unsup = BaseDataset(root, "unlabelled", batch_size=bs, resize=cfg.resize)
-    return (Loader(sup, bs, shuffle=True, seed=0, device=device, workers=4),
-            Loader(unsup, bs, shuffle=True, seed=1, device=device, workers=4))
+    return (Loader(sup, bs, shuffle=True, seed=0, device=device, workers=4, shard=shard),
+            Loader(unsup, bs, shuffle=True, seed=1, device=device, workers=4, shard=shard))
 
 
 def make_test_loader(cfg, device):
@@ -428,18 +630,34 @@ def make_test_loader(cfg, device):
     return Loader(ds, 1, shuffle=False, device=device)
 
 
-def _check_supported(cfg, mesh):
+def _check_supported(cfg):
     """Knobs of the JAX driver that batch work for the TPU raise here."""
     tc = cfg.train
     unported = [
         (int(tc.get("scan_steps", 0) or 0) > 1, "scan_steps > 1", "item 1"),
         (bool(tc.get("fused_step")), "fused_step", "item 1"),
-        (bool(tc.get("zero_opt")), "zero_opt", "item 12"),
-        (mesh is not None, "a mesh", "item 12"),
+        (bool(tc.get("zero_opt")) and int(tc.get("grad_accum_steps", 1) or 1) > 1,
+         "zero_opt with grad_accum_steps > 1", "item 24"),
     ]
     for on, name, item in unported:
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, queue 1, {item})")
+
+
+def _mesh_flag(mesh: Mesh, flag: bool) -> bool:
+    """``flag`` set on any rank of the mesh (an all-reduce MAX)."""
+    device = "cuda" if mesh.backend == "nccl" else "cpu"
+    t = torch.tensor([int(flag)], device=device)
+    return bool(all_reduce_(t, mesh.group, torch.distributed.ReduceOp.MAX).item())
+
+
+def _from_main(mesh: Optional[Mesh], value):
+    """``value`` as the mesh's main rank holds it, on every rank."""
+    if mesh is None:
+        return value
+    box = [value]
+    torch.distributed.broadcast_object_list(box, mesh.ranks[0], group=mesh.group)
+    return box[0]
 
 
 def _to_nhwc(t: torch.Tensor) -> np.ndarray:
@@ -447,7 +665,7 @@ def _to_nhwc(t: torch.Tensor) -> np.ndarray:
 
 
 def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="cuda",
-          mesh=None, history: Optional[list] = None) -> CPSTrainState:
+          mesh: Optional[Mesh] = None, history: Optional[list] = None) -> CPSTrainState:
     """The flagship CPS driver, the JAX package's ``train`` (reference
     train_vqreptunet1x1v2.py:48-274).  Returns the final state.
 
@@ -478,16 +696,25 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
       ``RuntimeError``, a non-finite loss ``FloatingPointError``.
     * ``cfg.train.remat`` is accepted and has no effect: it trades memory
       only, and the flagship step peaks at 8.96 GiB of 80 GB on an NVIDIA
-      H100 80GB HBM3 at 700.00 W (PERF.md).  ``scan_steps``, ``fused_step``,
-      ``zero_opt`` and ``mesh`` raise.
-    * ``history``: a list that gets one dict per epoch (times, averages,
-      test mIoU, step and LR, checkpoint copy time).
+      H100 80GB HBM3 at 700.00 W (PERF.md).  ``scan_steps`` and
+      ``fused_step`` raise.
+    * ``mesh`` (``parallel.make_mesh``; every rank of it calls ``train``):
+      ``cfg.train.batch_size`` is the global batch, and each rank decodes
+      its shard of every global batch from the same seeded order.  A mesh
+      with ``n_model`` 1 runs the data-parallel step, with 2 the
+      pair-sharded step; ``cfg.train.zero_opt`` shards each Adam over its
+      model's data group (ZeRO-1).  The init phase runs on the gathered
+      global batch.  Rank (0, 0) alone logs, evaluates model 1 (the others
+      wait for its mIoU), writes the run directory and writes each
+      checkpoint, the single-process contract gathered from the ranks.
+      A preemption latched on any rank stops every rank after the same
+      epoch.  ``history`` gets the same records on every rank.
     """
     device = resolve_device(device)
-    _check_supported(cfg, mesh)
+    _check_supported(cfg)
     seed_everything()
+    main = mesh is None or mesh.is_main
     num_classes = cfg.num_classes
-    batch_size = cfg.train.batch_size
     num_epochs = cfg.train.num_epochs
     half = bool(cfg.train.get("half", False))
     p2l = cfg.pixel_to_label
@@ -497,7 +724,7 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
     # nothing)
     logger = None
     ckpoints_dir = img_dir = log_txt = None
-    save_dir = run_dir(cfg, "hybrid")
+    save_dir = run_dir(cfg, "hybrid") if main else None
     if save_dir is not None:
         logger_name = os.path.basename(save_dir)
         ckpoints_dir = os.path.join(save_dir, "ckpoints")
@@ -509,7 +736,8 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
         if cfg.wandb_logging:
             logger = Logger(cfg, logger_name, offline_dir=save_dir)
 
-    sup_loader, unsup_loader = semi_loaders(cfg, device)
+    shard = (mesh.data_index, mesh.n_data) if mesh is not None else None
+    sup_loader, unsup_loader = semi_loaders(cfg, device, shard)
     steps_per_epoch = len(unsup_loader)
     if max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
@@ -523,29 +751,39 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
                              encoder_weights=cfg.model.params.get("encoder_weights"),
                              init_weights=bool(cfg.train.get("init_weights", False)),
                              grad_accum_steps=int(cfg.train.get("grad_accum_steps", 1) or 1),
-                             device=device)
+                             device=device, mesh=mesh,
+                             zero=bool(cfg.train.get("zero_opt")) and mesh is not None)
+    if state.replicas_differed:
+        print(f"rank {mesh.rank}: the start-up broadcast changed {state.replicas_differed} "
+              "tensors: the ranks' draws differed")
     debug_nans = bool(cfg.train.get("debug_nans"))
-    train_step = make_cps_train_step(
-        dice, num_classes=num_classes, confidence_threshold=th,
-        cps_loss_weight=cfg.train.cps_loss_weight,
-        commitment_loss_weight=cfg.train.total_commitment_loss_weight,
-        prototype_loss_weight=cfg.train.total_prototype_loss_weight,
-        ce_weight=criterion.get("weight"), half=half)
+    step_kw = dict(num_classes=num_classes, confidence_threshold=th,
+                   cps_loss_weight=cfg.train.cps_loss_weight,
+                   commitment_loss_weight=cfg.train.total_commitment_loss_weight,
+                   prototype_loss_weight=cfg.train.total_prototype_loss_weight,
+                   ce_weight=criterion.get("weight"), half=half)
+    if mesh is not None and mesh.pair:
+        train_step = make_cps_train_step_pairsharded(dice, mesh, **step_kw)
+    else:
+        train_step = make_cps_train_step(dice, mesh=mesh, **step_kw)
 
     start_epoch, initted = 0, False
     resume = cfg.train.get("resume")
     if resume == "auto":
-        resume = latest_ckpt(cfg.train.get("save_dir"))
-        print(f"auto-resume: {resume or 'no previous last.ckpt, fresh start'}")
+        resume = _from_main(mesh, latest_ckpt(cfg.train.get("save_dir")) if main else None)
+        if main:
+            print(f"auto-resume: {resume or 'no previous last.ckpt, fresh start'}")
     if resume:
         ck = load_full(resume)
         restore_cps_state(state, ck)
         start_epoch = int(ck["epoch"]) + 1
         initted = True
-        print(f"resume: {resume}: epoch {start_epoch}, step {state.step}, "
-              f"lr {schedule(state.step)}")
+        if main:
+            print(f"resume: {resume}: epoch {start_epoch}, step {state.step}, "
+                  f"lr {schedule(state.step)}")
 
-    test_loader = make_test_loader(cfg, device)
+    test_loader = make_test_loader(cfg, device) if main else None
+    test_every = cfg.train.get("test_every") if cfg.get("test") else None
 
     l_input = l_target = ul_input = pred_sup_1 = pred_ul_1 = None
     with (preempt or PreemptionGuard()) as preempt, \
@@ -561,7 +799,7 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
                 l_target = img_to_label(sup_batch["target"], p2l)
                 ul_input = unsup_batch["img"]
                 if not initted:
-                    cps_init_phase(state, l_input, l_target, th, half=half)
+                    cps_init_phase(state, l_input, l_target, th, half=half, mesh=mesh)
                     initted = True
                 state, metrics, pred_sup_1, pred_ul_1 = train_step(state, l_input, l_target,
                                                                    ul_input)
@@ -570,6 +808,8 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
                 for k, v in metrics.items():  # on the device, read once per epoch
                     sums[k] = sums.get(k, 0) + v
             del trainloader  # ends the loaders' threads of a capped epoch
+            stop = _mesh_flag(mesh, preempt.should_stop) if mesh is not None \
+                else preempt.should_stop
             avg = {k: (v / steps_per_epoch).cpu().numpy() for k, v in sums.items()}
             iou = avg.pop("iou_list")
             back_iou, weed_iou, crop_iou = [float(x) for x in iou[:3]]
@@ -582,7 +822,8 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
                          f"cps_loss={avg['cps_loss']:.4f}, "
                          f"commitment_loss={avg['commitment_loss']:.4f}, "
                          f"{seconds:.1f}s")
-            print(print_txt)
+            if main:
+                print(print_txt)
             record = {"epoch": epoch, "seconds": seconds, "steps": steps_per_epoch,
                       "step_start": step_start,
                       "lr_start": float(schedule(step_start // state.grad_accum_steps)),
@@ -590,44 +831,54 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
                       "code_usage": code_usage, "test_miou": None, "eval_seconds": None,
                       "ckpt_fetch_seconds": None, "ckpt_files": [],
                       **{k: float(v) for k, v in avg.items()}}
-            if test_loader is not None and epoch % cfg.train.test_every == 0:
+            if test_every and epoch % test_every == 0:
                 t0 = time.time()
-                test_miou = evaluate(state.model_1, test_loader, p2l, num_classes, half=half,
-                                     device=device)
+                test_miou = None
+                if test_loader is not None:  # model 1 lives on the main rank
+                    test_miou = evaluate(state.model_1, test_loader, p2l, num_classes,
+                                         half=half, device=device)
+                test_miou = _from_main(mesh, test_miou)
                 record.update(test_miou=test_miou, eval_seconds=time.time() - t0)
-                print(f"test miou : {test_miou}")
+                if main:
+                    print(f"test miou : {test_miou}")
                 if logger is not None:
                     logger.log_dict["test_miou"] = test_miou
             if log_txt is not None:
                 with open(log_txt, "a") as f:
                     f.write(print_txt + "\n")
-            if save_dir is not None:
-                example = visualize.make_example_img(
-                    _to_nhwc(l_input), l_target.cpu().numpy(), _to_nhwc(pred_sup_1),
-                    _to_nhwc(ul_input), _to_nhwc(pred_ul_1))
-                if logger is not None:
-                    logger.image_update(example, f"{epoch}ep")
-                if cfg.train.save_img:
-                    visualize.save_img(img_dir, f"output_{epoch}ep.png", example)
+            if cfg.train.get("save_dir"):
+                if save_dir is not None:
+                    example = visualize.make_example_img(
+                        _to_nhwc(l_input), l_target.cpu().numpy(), _to_nhwc(pred_sup_1),
+                        _to_nhwc(ul_input), _to_nhwc(pred_ul_1))
+                    if logger is not None:
+                        logger.image_update(example, f"{epoch}ep")
+                    if cfg.train.save_img:
+                        visualize.save_img(img_dir, f"output_{epoch}ep.png", example)
                 do_snap, do_last, light = ckpt_cadence(cfg, epoch, num_epochs)
-                if preempt.should_stop:
+                if stop:
                     # preemption: last.ckpt carries the full resume contract
                     # whatever the cadence
                     do_last = True
                 if do_snap or do_last:
                     t0 = time.time()
                     # one host copy shared by the snapshot and last.ckpt
-                    host_ck = fetch_ckpt_tree(state.model_1, state.model_2, epoch, batch_idx,
-                                              state.opt_1, state.opt_2,
-                                              include_optimizers=do_last or not light)
+                    full = do_last or not light
+                    if mesh is None:
+                        host_ck = fetch_ckpt_tree(state.model_1, state.model_2, epoch,
+                                                  batch_idx, state.opt_1, state.opt_2,
+                                                  include_optimizers=full)
+                    else:
+                        host_ck = mesh_ckpt_tree(state, mesh, epoch, batch_idx, full)
                     record["ckpt_fetch_seconds"] = time.time() - t0
                     # snapshots may be light; last.ckpt keeps the full contract
                     writes = [(f"{epoch}ep.ckpt", not light)] if do_snap else []
                     writes += [("last.ckpt", True)] if do_last else []
-                    for name, full in writes:
-                        save_ckpoints(state.model_1, state.model_2, epoch, batch_idx,
-                                      state.opt_1, state.opt_2, os.path.join(ckpoints_dir, name),
-                                      prefetched=host_ck, include_optimizers=full)
+                    for name, with_opt in writes:
+                        if host_ck is not None:
+                            save_ckpoints(None, None, epoch, batch_idx, None, None,
+                                          os.path.join(ckpoints_dir, name), prefetched=host_ck,
+                                          include_optimizers=with_opt)
                         record["ckpt_files"].append(name)
             if logger is not None:
                 logger.log_dict.update({k: float(v) for k, v in avg.items()})
@@ -638,9 +889,10 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
                 logger.config_update()
             if history is not None:
                 history.append(record)
-            if preempt.should_stop:
-                print(f"preempted after epoch {epoch}: last.ckpt written; rerun with "
-                      "cfg.train.resume='auto' to continue")
+            if stop:
+                if main:
+                    print(f"preempted after epoch {epoch}: last.ckpt written; rerun with "
+                          "cfg.train.resume='auto' to continue")
                 break
     if logger is not None:
         logger.finish()

@@ -31,6 +31,7 @@ from ..losses import cross_entropy_loss, make_loss
 from ..metrics.measurement import confusion_matrix, miou
 from ..models.modules.vector_quantizer import ema_updates
 from ..models.networks import make_model
+from ..parallel.mesh import refuse_mesh
 from ..utils.ckpoints import save_tree, wait_for_saves
 from ..utils.logger import Logger
 from ..utils.seed import seed_everything
@@ -174,7 +175,7 @@ def sup_dropout(cfg, device) -> Callable:
 
 
 def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-          history: Optional[list] = None) -> TrainState:
+          history: Optional[list] = None, mesh=None) -> TrainState:
     """The supervised driver (train_sup.py flow).  Returns the final state.
 
     * Data: ``{cfg.train.data_dir}/train`` labelled, seed 0;
@@ -190,6 +191,7 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
       forward takes ``dropout`` gets ``sup_dropout``'s masks.
     * ``history``: a list that gets one dict per epoch.
     """
+    refuse_mesh(mesh, "sup")
     device = resolve_device(device)
     ds_kind = cfg.train.get("dataset", "base")
     seed_everything()

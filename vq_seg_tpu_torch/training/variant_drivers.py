@@ -28,6 +28,7 @@ from ..data.augmentations import make_cutout_mask
 from ..device import full_f32, resolve_device
 from ..losses import make_loss
 from ..models.modules.vector_quantizer import ema_updates
+from ..parallel.mesh import refuse_mesh
 from ..utils.ckpoints import (fetch_ckpt_tree, load_vqvae_pretrained, save_ckpoints,
                               save_tree, wait_for_saves)
 from ..utils.logger import Logger
@@ -149,7 +150,7 @@ class _Run:
 
 @full_f32()
 def train_rept_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                   history: Optional[list] = None):
+                   history: Optional[list] = None, mesh=None):
     """The ``reptcps`` driver (reference
     train_with_test_pt_pseudo_entropy_reg.py:124-210).  Returns the final
     ``CPSTrainState``.
@@ -171,6 +172,7 @@ def train_rept_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
     * ``history``: a list that gets one dict per epoch (averages, seconds,
       test mIoU, checkpoint files).
     """
+    refuse_mesh(mesh, "reptcps")
     device = resolve_device(device)
     run = _Run(cfg, "reptcps", device, max_steps_per_epoch)
     criterion = make_loss(cfg.train.criterion.name, cfg.num_classes, ignore_index=IGNORE,
@@ -233,7 +235,7 @@ def plain_step(cfg, state: CPSTrainState, mode: str) -> Callable:
 
 @full_f32()
 def train_plain_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                    history: Optional[list] = None):
+                    history: Optional[list] = None, mesh=None):
     """The ``plaincps`` driver (reference deprecated/train_CPS.py), for any
     plain-forward network (``vqunet_v2`` and the attention networks).
     Returns the final ``CPSTrainState``.
@@ -253,6 +255,7 @@ def train_plain_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda
       not read.
     * ``history``: a list that gets one dict per epoch.
     """
+    refuse_mesh(mesh, "plaincps")
     device = resolve_device(device)
     run = _Run(cfg, "plaincps", device, max_steps_per_epoch)
     state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
@@ -264,7 +267,7 @@ def train_plain_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda
 
 @full_f32()
 def train_obj_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                  history: Optional[list] = None):
+                  history: Optional[list] = None, mesh=None):
     """The ``objcps`` driver (reference
     deprecated/train_with_test_object_loss.py): plain CPS with the
     configured criterion plus the binary object loss on the non-background
@@ -273,6 +276,7 @@ def train_obj_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
     ``decoder_lr_times``); otherwise as ``train_plain_cps``, with the run
     directory ``{project_name}_objcps_{n}``.  Returns the final
     ``CPSTrainState``."""
+    refuse_mesh(mesh, "objcps")
     device = resolve_device(device)
     run = _Run(cfg, "objcps", device, max_steps_per_epoch)
     state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
@@ -338,7 +342,7 @@ def vqpt_step(cfg, mode: str = "vqpt") -> Callable:
 
 @full_f32()
 def train_vqpt_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                   history: Optional[list] = None):
+                   history: Optional[list] = None, mesh=None):
     """The ``vqpt`` driver (reference deprecated/train_vq_pt_unet.py and
     train_only_decoder.py), for the ``(x, gt)`` networks.  Returns the final
     ``CPSTrainState``.
@@ -359,6 +363,7 @@ def train_vqpt_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
       read, although the shipped configs say ``"half": true``.
     * ``history``: a list that gets one dict per epoch.
     """
+    refuse_mesh(mesh, "vqpt")
     device = resolve_device(device)
     run = _Run(cfg, "vqpt", device, max_steps_per_epoch)
     pretrained = cfg.train.get("pretrained")
@@ -399,7 +404,7 @@ def easyhard_draws(cfg, device) -> Callable:
 
 @full_f32()
 def train_easyhard_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                       history: Optional[list] = None):
+                       history: Optional[list] = None, mesh=None):
     """The ``easyhard`` driver (reference
     deprecated/train_vqpt_easyhard_aug.py), for the ``(x, gt)`` networks.
     Returns the final ``CPSTrainState``.
@@ -415,6 +420,7 @@ def train_easyhard_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="c
     * f32 throughout under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
+    refuse_mesh(mesh, "easyhard")
     device = resolve_device(device)
     run = _Run(cfg, "easyhard", device, max_steps_per_epoch, evaluate=False)
     state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
@@ -438,7 +444,7 @@ def angularv3_threshold(epoch: int, num_epochs: int) -> float:
 
 @full_f32()
 def train_angularv3_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                        history: Optional[list] = None):
+                        history: Optional[list] = None, mesh=None):
     """The ``angularv3`` driver (reference deprecated/train_angularv3.py)
     for ``vqreptunetangularv3``.  Returns the final ``CPSTrainState``.
 
@@ -455,6 +461,7 @@ def train_angularv3_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="
     * f32 under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
+    refuse_mesh(mesh, "angularv3")
     device = resolve_device(device)
     run = _Run(cfg, "angularv3", device, max_steps_per_epoch)
     state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
@@ -472,7 +479,7 @@ def train_angularv3_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="
 
 @full_f32()
 def train_supcon_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                     history: Optional[list] = None):
+                     history: Optional[list] = None, mesh=None):
     """The ``supconcps`` driver (reference deprecated/train_supcon_unet.py)
     for ``supconvqunet``.  Returns the final ``CPSTrainState``.
 
@@ -487,6 +494,7 @@ def train_supcon_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cud
     * f32 under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
+    refuse_mesh(mesh, "supconcps")
     device = resolve_device(device)
     run = _Run(cfg, "supconcps", device, max_steps_per_epoch)
     state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
@@ -531,7 +539,7 @@ def semiweed_state(cfg, schedule, device) -> TrainState:
 
 @full_f32()
 def train_semiweed(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                   history: Optional[list] = None):
+                   history: Optional[list] = None, mesh=None):
     """The ``semiweed`` driver (reference deprecated/semiweednet_train.py)
     for ``semiweednet``: one model.  Returns the final ``TrainState``.
 
@@ -546,6 +554,7 @@ def train_semiweed(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
     * f32 under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
+    refuse_mesh(mesh, "semiweed")
     device = resolve_device(device)
     run = _Run(cfg, "semiweed", device, max_steps_per_epoch)
     tc = cfg.train
@@ -603,7 +612,7 @@ def unimatch_state(cfg, schedule, device) -> TrainState:
 
 @full_f32()
 def train_unimatch(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                   history: Optional[list] = None):
+                   history: Optional[list] = None, mesh=None):
     """The ``unimatch`` driver (reference deprecated/train_UniMatch.py) for
     the ``unimatch`` network: one model.  Returns the final ``TrainState``.
 
@@ -617,6 +626,7 @@ def train_unimatch(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
     * f32 under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
+    refuse_mesh(mesh, "unimatch")
     device = resolve_device(device)
     run = _Run(cfg, "unimatch", device, max_steps_per_epoch)
     state = unimatch_state(cfg, run.schedule, device)
@@ -658,7 +668,7 @@ def salient_step(cfg) -> Callable:
 
 @full_f32()
 def train_salient_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                      history: Optional[list] = None):
+                      history: Optional[list] = None, mesh=None):
     """The ``salientcps`` driver (reference deprecated/train_salient_loss.py)
     for two ``VQUnetwithSalientloss`` models.  Returns the final
     ``CPSTrainState``.
@@ -675,6 +685,7 @@ def train_salient_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cu
     * f32 under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
+    refuse_mesh(mesh, "salientcps")
     device = resolve_device(device)
     run = _Run(cfg, "salientcps", device, max_steps_per_epoch, evaluate=False,
                loaders=salient_loaders(cfg, device))
