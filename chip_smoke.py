@@ -35,7 +35,7 @@ check does not hold:
    ``cps_init_phase`` -> ``make_cps_train_step``) with the config's loss
    weights, criterion, LR schedule, ``init_weights`` and bf16 autocast,
    batch 4 labeled + 4 unlabeled, random weights from a seed (pretrained
-   encoders cannot be fetched).  The init phase, then 2 warm-up and 3
+   encoders cannot be fetched).  The init phase, then 2 warm-up and 2
    timed steps on distinct synthetic batches, each ended by a fetch of the
    loss: p50/p90 ms per step, img/s (8 images per step), every loss term,
    the peak memory and a profile of 1 more step.  The kernel's launch
@@ -87,7 +87,7 @@ check does not hold:
 9. the supervised baseline at full width, bf16 as the configs set it:
    ``only_sup_kmeans.json`` (``vqunet_v2``, 512x512, batch 4: 3 launches
    at init and 3 per step) and ``CWFID_Unet.json`` (``unet``, batch 8: no
-   launch), each 1 warm-up, 3 timed and 1 profiled step: p50, peak
+   launch), each 1 warm-up, 2 timed and 1 profiled step: p50, peak
    memory, device time per step; the kernel against its plain version at
    ``vqunet_v2``'s shapes.  Then the sup driver for one epoch on the
    tree: 3 + 3 per step launches and ``last.ckpt`` holding exactly
@@ -199,7 +199,7 @@ check does not hold:
 15. on phase 7's tree and phase 3's weights: (a) the flagship CPS step
    (bf16, batch 4+4, 448x448) with ``vq_cfg.ema``, the default decay 0.8
    and ``restart_threshold`` 0.5: the init phase (6 launches), 1 warm-up,
-   3 timed and 1 profiled step at exactly 18 launches; every codebook,
+   2 timed and 1 profiled step at exactly 18 launches; every codebook,
    ``cluster_size`` and ``embed_avg`` of both models moved, at least one
    code revived, each revived code bitwise a row of its pass's features;
    at the three shapes of a train pass the update from the kernel's idx
@@ -221,7 +221,8 @@ check does not hold:
    profiled step at 18 launches, finite losses, p50 and device time beside
    phase 6's, one served batch of 8 (3 launches).
 16. the flagship's CPS step across processes and serving on a mesh of
-   devices, at full width (``config/vqreptunet1x1v2.json``, 448², global
+   devices (``parallel_phase``; alone: ``python tools/chip_phase.py
+   16``), at full width (``config/vqreptunet1x1v2.json``, 448², global
    batch 4+4).  First the single-process references from one post-init
    state (f32 init): its f32 step (TF32 off), the same step again (the
    card's spread between two runs) and in f64 (the VQ on the plain
@@ -236,8 +237,7 @@ check does not hold:
    the DP path in bf16, init (exactly 6 launches), 1 warm-up, 2 timed, 1
    profiled and 1 step with every collective synchronised around and
    timed (18 each; p50 against phase 6's, the collectives' share, peak
-   memory), a host-side trace of one step on the mesh and one without,
-   then the f32 DP step from the reference state (loss terms within 1e-5
+   memory), then the f32 DP step from the reference state (loss terms within 1e-5
    of the single-process step's, gradients 1e-4 + 2x against f64).
    (b)-(c) Two spawned ranks (``python3 chip_smoke.py --parallel-child R
    DIR``) on the one card over gloo with CUDA tensors: DP-2 and pair-2,
@@ -256,7 +256,28 @@ check does not hold:
    "cuda:0"], batch_size=8)`` in f32: 3 launches per replica forward,
    labels against phase 3's f32 predictor (agreement >= 0.999).  No
    checkpoint is written.
-17. one ``{"kernels": [...]}`` JSON line, the card line, and last
+17. the eleven other training modes on a mesh, and ZeRO-1 with gradient
+   accumulation (``modes_phase``; alone: ``python tools/chip_phase.py
+   17``).  (a) World 1 on NCCL: each mode of ``MODES17`` (``sup`` on
+   ``only_sup_kmeans.json`` in bf16, the ten variant modes on their phase
+   8-13 configs in f32, at full width, batch 4+4) from its driver's state
+   and init phase: its meshless step (untimed), then the DP step from the
+   same state and batch, profiled, with every collective synchronised
+   around and timed: each loss term within 1e-4 of itself in f32, 2e-2 in
+   bf16 (a term 0 in the meshless step must be 0); ``supconcps``'s
+   contrastive term, about 1e-8 at these weights, against the f64
+   formula on the inputs each step recorded: within 1e-4 on its own,
+   5e-3 on the meshless step's; exact launches per rank
+   (``LAUNCHES17``).  (b) ``unimatch`` and ``semiweed`` on two gloo ranks
+   sharing the card (``python3 chip_smoke.py --modes-child R DIR``): an
+   untimed step, back to the state the parent wrote, the compared f32
+   step, against the single process (loss terms 1e-4) and the f64 step
+   (phase 16's rule, 1e-3 + 2x).  (c) The flagship with ZeRO-1 and
+   ``grad_accum_steps`` 2 on world 1: after each of two micro-steps its
+   parameters bitwise those of a replicated ``MultiStepAdam`` given the
+   same gradients, and after the first its consolidated state dict holds
+   ``mini_step`` 1 and every ``acc_grads``, bitwise.
+18. one ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -265,6 +286,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import inspect
 import json
 import os
 import shutil
@@ -283,10 +305,10 @@ SEED = 0
 BATCH = 8
 PARTIAL = 3
 STREAM_BATCHES = 3
-# 60 timed calls leave 6 samples above the p90 that is reported (phases
-# 3, 6, 8 and 9 take fewer samples since phase 10 came, to keep the
-# script's command time near 300 s)
-TIMED_BATCHES = 40
+# 30 timed calls leave 3 samples above the p90 that is reported (phases
+# 3, 6, 8 and 9 take fewer samples since phase 10 came, and again since
+# phases 16 and 17, to keep the script's command time near its budget)
+TIMED_BATCHES = 30
 THROUGHPUT_BATCHES = 15
 PROFILED_BATCHES = 5
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -298,7 +320,7 @@ TRAIN_BATCH = 4  # labeled, and as many unlabeled
 # timed and profiled samples are cut phase by phase to keep the script's
 # command time under 420 s (with phase 12, then again with phase 14)
 TRAIN_WARMUP = 2
-TRAIN_TIMED = 3
+TRAIN_TIMED = 2
 TRAIN_PROFILED = 1
 VQ_PER_STEP = 18  # 6 forwards x 3 VQ stages
 STEP_LOSS_TOL = 1e-4
@@ -319,7 +341,7 @@ REPT_DROP = 80.0
 REPT_WARMUP, REPT_TIMED, REPT_PROFILED = 1, 2, 1
 # phase 9: the supervised baseline; (config, kernel launches per step)
 SUP_CONFIGS = (("only_sup_kmeans", 3), ("CWFID_Unet", 0))
-SUP_WARMUP, SUP_TIMED, SUP_PROFILED = 1, 3, 1
+SUP_WARMUP, SUP_TIMED, SUP_PROFILED = 1, 2, 1
 # phase 10: plaincps / objcps with the attention networks, f32 as the JAX
 # drivers run them; config -> VQ launches per forward
 PLAIN_CONFIG, OBJ_CONFIG = "vqcanet", "vqcanet_obj_loss"
@@ -366,7 +388,7 @@ SALIENT_TERMS = ("loss", "cps_loss", "salient_loss", "commitment_loss")
 # phase 15: the VQ EMA update and restart on the flagship step (euclidean,
 # then cosine), through the driver, int8 serving and the subpixel tail
 EMA_RESTART = 0.5
-EMA_WARMUP, EMA_TIMED, EMA_PROFILED = 1, 3, 1
+EMA_WARMUP, EMA_TIMED, EMA_PROFILED = 1, 2, 1
 COS_WARMUP, COS_TIMED, COS_PROFILED = 1, 2, 1
 SUB_WARMUP, SUB_TIMED, SUB_PROFILED = 1, 2, 1
 EMA_TOL = 1e-5  # the update from the kernel's idx and counts against the plain version's
@@ -389,6 +411,31 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_setup() -> str:
+    """The set-up of every run on the card (the script, or one phase alone
+    through ``tools/chip_phase.py``): TF32 off, the logger kept off the
+    network (wandb, where installed, is switched off; without it the logger
+    writes JSONL), the kernel built from the checkout.  Prints the card
+    and the build; returns the card's line."""
+    from vq_seg_tpu_torch.ops import vq_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["WANDB_MODE"] = "disabled"
+    card = card_line()
+    print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    print("[device] TF32 off: torch.backends.cuda.matmul.allow_tf32=False, "
+          "torch.backends.cudnn.allow_tf32=False")
+    info = vq_cuda.build()
+    print(f"[build] {os.path.relpath(vq_cuda.SOURCE, ROOT)} -> "
+          f"{os.path.relpath(info['path'], ROOT)}: "
+          f"{'built' if info['built'] else 'reused'} in {info['seconds']:.2f} s")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build]   {line.strip()}")
+    return card
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -417,6 +464,21 @@ def vq_bound_ms(n: int, c: int, k: int):
     return ops_ms, bytes_ms, f32_simt_ms
 
 
+def _device_spans(prof, device_type) -> list:
+    """(start, end in µs, name) of the card's kernels and copies in
+    ``prof``'s window, sorted.  Read from the profiler's own C++ events
+    (``prof.profiler.kineto_results``): ``prof.events()`` first builds
+    every Python ``FunctionEvent``, 4-6 s for a step's 20,000 device
+    activities.  A user annotation on the device timeline (the
+    optimizer's step range) overlaps the kernels it holds and is left
+    out."""
+    results = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    check(results is not None, "the profiler holds no kineto_results: this torch's profiler "
+          "differs from the one chip_smoke reads")
+    return sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name()) for e in results.events()
+                  if e.device_type() == device_type.CUDA and not e.is_user_annotation())
+
+
 def profile_window(run, n: int, unit: str, tag: str, label: str, card: str):
     """Where the device time of ``n`` calls of ``run(i)`` goes: a
     ``torch.profiler`` window over them.  Prints the share of the window's
@@ -436,11 +498,7 @@ def profile_window(run, n: int, unit: str, tag: str, label: str, card: str):
         for i in range(n):
             run(i)
         wall_us = (time.perf_counter() - t0) * 1e6
-    # kernels and copies; a user annotation on the device timeline (the
-    # optimizer's step range) overlaps the kernels it holds and is left out
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
+    spans = _device_spans(prof, DeviceType)
     if not spans:
         print(f"[{tag}] device time not measured: the trace holds no CUDA activity | {card}")
         return None
@@ -463,36 +521,6 @@ def profile_window(run, n: int, unit: str, tag: str, label: str, card: str):
     for name, t in ranked[:8] + [kv for kv in ranked[8:] if kv[0].startswith(VQ_KERNEL_NAMES)]:
         print(f"[{tag}]   {t / per:8.3f} ms/{unit} {100 * t / device_us:5.1f}%  {name[:90]}")
     return {"device_ms": device_us / per, "vq_ms": vq_us / per, "busy": busy_us / wall_us}
-
-
-def host_profile(run, tag: str, label: str, card: str) -> dict:
-    """Where one call of ``run()`` spends the host's time: a
-    ``torch.profiler`` window over its host ops alone (the card is
-    synchronised at both ends).  Prints the wall time under the profiler,
-    the ops' summed self time, the distributed ops' share of it, and the
-    ops with the most self time.  Returns ``{"wall_ms", "self_ms",
-    "c10d_ms", "ops", "table"}``, the table {op: (self ms, calls)}."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    avgs = list(prof.key_averages())
-    self_ms = sum(a.self_cpu_time_total for a in avgs) / 1e3
-    c10d_ms = sum(a.self_cpu_time_total for a in avgs
-                  if a.key.startswith(("c10d", "nccl", "gloo", "record_param_comms"))) / 1e3
-    ops = sum(a.count for a in avgs)
-    ranked = sorted(avgs, key=lambda a: -a.self_cpu_time_total)[:5]
-    print(f"[{tag}] {label}: host wall {wall_ms:.1f} ms under the profiler, {ops} host ops, "
-          f"self time {self_ms:.1f} ms, of it distributed ops {c10d_ms:.1f} ms | {card}")
-    for a in ranked:
-        print(f"[{tag}]   {a.self_cpu_time_total / 1e3:8.1f} ms self in {a.count:6d} calls  "
-              f"{a.key[:80]}")
-    return {"wall_ms": wall_ms, "self_ms": self_ms, "c10d_ms": c10d_ms, "ops": ops,
-            "table": {a.key: (a.self_cpu_time_total / 1e3, a.count) for a in avgs}}
 
 
 def first_duplicate(cb: torch.Tensor) -> torch.Tensor:
@@ -3827,22 +3855,7 @@ def parallel_phase(cfg, card: str, vq_cuda, vq_assign_reference, vector_quantize
             check(init_launches == 6 and per_step == [VQ_PER_STEP] * 5,
                   f"NCCL DP launches {init_launches} + {per_step}, expected 6 + 18 per step")
             check(all(np.isfinite(float(m[k])) for k in LOSS_TERMS), "non-finite NCCL DP loss")
-            # the host side of one step, on the mesh and without one
-            plain = make_cps_train_step(dice, half=half, **step_kw)
-            hosts = [host_profile(
-                lambda f=f: float(f(state, to_input(run[4][0]), run[4][1],
-                                    to_input(run[4][2]))[1]["loss"]),
-                "par-host", label, card)
-                for f, label in ((step, "bf16 DP step, world 1 on NCCL"),
-                                 (plain, "the same bf16 step without a mesh"))]
-            del state, plain
-            more, less = (h["table"] for h in hosts)
-            extra = sorted(((t - less.get(k, (0.0, 0))[0], k) for k, (t, _) in more.items()),
-                           reverse=True)[:12]
-            print(f"[par-host] where the DP step's extra {hosts[0]['self_ms'] - hosts[1]['self_ms']:.1f} "
-                  f"ms of host self time goes, by op (its calls against the meshless step's): "
-                  + "; ".join(f"{k} +{d:.1f} ms ({more[k][1]} / {less.get(k, (0, 0))[1]})"
-                              for d, k in extra))
+            del state
             # the same DP step in f32 from the single-process post-init state
             dp_state = copy.deepcopy(single)
             step32_dp = make_cps_train_step(dice, mesh=mesh, half=False, **step_kw)
@@ -3875,7 +3888,7 @@ def parallel_phase(cfg, card: str, vq_cuda, vq_assign_reference, vector_quantize
             out["nccl"] = {"init_launches": init_launches, "step_launches": per_step,
                            "p50": statistics.median(times), "share": shares[0],
                            "peak_gib": peak / 2**30, "loss_err": loss_err, "grad_err": grad_err,
-                           "f64_share": share64, "host": hosts,
+                           "f64_share": share64,
                            "device_ms": prof["device_ms"] if prof else None}
         finally:
             dist.destroy_process_group()
@@ -4036,6 +4049,580 @@ def parallel_phase(cfg, card: str, vq_cuda, vq_assign_reference, vector_quantize
     return out
 
 
+# -- phase 17: the other eleven modes on a mesh, ZeRO-1 with accumulation ------------------
+# (mode, config); the launches per rank (init phase, step) held exactly
+MODES17 = (("sup", "only_sup_kmeans"), ("reptcps", REPT_CONFIG), ("plaincps", PLAIN_CONFIG),
+           ("objcps", OBJ_CONFIG), ("vqpt", VQPT_CONFIG), ("easyhard", EASYHARD_CONFIG),
+           ("angularv3", ANGULAR_CONFIG), ("supconcps", SUPCON_CONFIG),
+           ("semiweed", SEMIWEED_CONFIG), ("unimatch", SEMIWEED_CONFIG),
+           ("salientcps", "vqreptunet1x1v2"))
+LAUNCHES17 = {"sup": (3, 3), "reptcps": (6, 18), "plaincps": (6, 12), "objcps": (6, 12),
+              "vqpt": (6, 18), "easyhard": (6, 18), "angularv3": (6, 18), "supconcps": (6, 18),
+              "semiweed": (0, 0), "unimatch": (0, 0), "salientcps": (6, 12)}
+# (a): the world-1 DP step against the meshless step from the same state and
+# batch, loss terms relative.  f32 (TF32 off): the two differ in the order of
+# the BatchNorm sums (sync-BN against cuDNN's) and in the pixels that such a
+# change flips at an argmax or a threshold, each 1 of about 10^6; bf16 (sup,
+# as its config runs): bf16 rounding of the activations, about 4e-3 per op
+PAR17_LOSS_TOL, PAR17_LOSS_TOL_BF16 = 1e-4, 2e-2
+# supconcps's contrastive term against the f64 formula on the inputs each
+# step recorded: on the DP step's own inputs within PAR17_LOSS_TOL (f32
+# rounding alone); on the meshless step's within PAR17_SUPCON_TOL.  At these
+# random weights the term is the softplus of a log-ratio near 47 over
+# (hw)^2, about 1e-8, the difference of two log-sum-exps of logits far
+# larger than 47 (their bound is printed), so the features' small change
+# between the two steps moves it by much more of itself.  Set after the
+# first card run, where the DP and meshless f32 terms lay 5.2e-4 of the term
+# apart: about 10x that
+PAR17_SUPCON_TOL = 5e-3
+# (b): unimatch and semiweed, both reaching across items, on two gloo ranks
+PAR17_CHILD_MODES = ("unimatch", "semiweed")
+PAR17_MODES_TIMEOUT_S = 300
+
+
+def mode17_cfg(mode: str, name: str):
+    """The mode's shipped config as its driver reads it (``unimatch`` and
+    ``salientcps`` have none: the ``semiweednet`` and flagship configs with
+    their networks, as phase 13 builds them)."""
+    from vq_seg_tpu_torch import load_config
+
+    c = load_config(name if name.endswith(".json") else
+                    os.path.join(ROOT, "config", f"{name}.json"))
+    if mode == "unimatch":
+        c.update(mode="unimatch", project_name="unimatch")
+        c.model.name = "unimatch"
+    if mode == "salientcps":
+        p = c.model.params
+        c.model = type(c.model)({"name": "VQUnetwithSalientloss",
+                                 "params": {k: p[k] for k in ("encoder_name", "num_classes",
+                                                              "vq_cfg")}})
+    return c
+
+
+def mode17_state(mode: str, c, mesh, batch):
+    """The mode's driver state (random weights from SEED) after its init
+    phase on ``batch`` (the global batch), as the driver runs it; the
+    init's launches."""
+    from vq_seg_tpu_torch.ops import vq_cuda
+    from vq_seg_tpu_torch.training import (cps_init_phase, make_lr_schedule, plain_init_phase,
+                                           supervised, vqpt_init_phase)
+    from vq_seg_tpu_torch.training.cps import model_cfg_with_bn
+    from vq_seg_tpu_torch.training.variant_drivers import dual_state
+
+    schedule = make_lr_schedule(c.train, 4)
+    l_img, target = to_input(batch[0]), batch[1]
+    if mode in ("sup", "semiweed", "unimatch"):
+        model_cfg = model_cfg_with_bn(c) if mode == "sup" else c.model
+        state = supervised.create_state(model_cfg, schedule, seed=SEED, mesh=mesh)
+    else:
+        state = dual_state(c, schedule, "cuda", mesh, encoder_weights=False)
+    vq_cuda.launches = 0
+    if mode == "sup":
+        fwd = supervised.sup_forward_mode(c.model.name)
+        supervised.init_phase(state, supervised.forward_args(fwd, l_img, target, REPT_DROP),
+                              half=bool(c.train.half))
+    elif mode == "reptcps":
+        cps_init_phase(state, l_img, target, 100.0)
+    elif mode in ("plaincps", "objcps", "salientcps"):
+        plain_init_phase(state, l_img, target)
+    elif mode in ("vqpt", "easyhard"):
+        vqpt_init_phase(state, l_img, target)
+    elif mode == "angularv3":
+        vqpt_init_phase(state, l_img, target, extra=("labeled", 0.0))
+    elif mode == "supconcps":
+        vqpt_init_phase(state, l_img, target, extra=("label",), init_protos=False)
+    return state, vq_cuda.launches
+
+
+def mode17_step(mode: str, c, state, mesh):
+    """The mode's step on ``mesh`` (None: meshless) as its driver builds it."""
+    from vq_seg_tpu_torch.losses import make_loss
+    from vq_seg_tpu_torch.training import (make_rept_cps_train_step, make_semiweed_train_step,
+                                           make_unimatch_train_step, plain_step, salient_step,
+                                           supervised, vqpt_step)
+
+    tc = c.train
+    crit = make_loss(tc.criterion.name, c.num_classes, ignore_index=255,
+                     weight=tc.criterion.get("weight"))
+    if mode == "sup":
+        return supervised.make_sup_train_step(
+            crit, num_classes=c.num_classes, ce_weight=tc.criterion.get("weight"),
+            forward_mode=supervised.sup_forward_mode(c.model.name), half=bool(tc.half),
+            mesh=mesh)
+    if mode == "reptcps":
+        return make_rept_cps_train_step(
+            crit, num_classes=c.num_classes, cps_loss_weight=tc.get("cps_loss_weight", 1.0),
+            commitment_loss_weight=tc.get("total_commitment_loss_weight", 1.0),
+            prototype_loss_weight=tc.get("total_prototype_loss_weight", 0.01), mesh=mesh)
+    if mode in ("plaincps", "objcps"):
+        return plain_step(c, state, mode, mesh)
+    if mode in ("vqpt", "easyhard", "angularv3", "supconcps"):
+        return vqpt_step(c, mode, mesh)
+    if mode == "semiweed":
+        return make_semiweed_train_step(
+            crit, num_classes=c.num_classes, overlap_size=tc.get("overlap_size", 240),
+            ce_loss_weight=tc.get("ce_loss_weight", 1.0),
+            dc_loss_weight=tc.get("dc_loss_weight", 1.0), mesh=mesh)
+    if mode == "unimatch":
+        return make_unimatch_train_step(
+            num_classes=c.num_classes, confidence_threshold=tc.get("confidence_threshold", 0.95),
+            ce_weight=tc.criterion.get("weight"), mesh=mesh)
+    return salient_step(c, mesh)
+
+
+def mode17_run(mode: str, c, state, step, batch, sal, mesh, dtype=torch.float32):
+    """One step on this rank's shard of the global ``batch`` with the
+    driver's per-step draws, made afresh (the same on every call and rank:
+    drawn for the global batch, this rank's rows), ended by the fetch of
+    its loss.  Returns the metrics."""
+    from vq_seg_tpu_torch.parallel.mesh import shard_batch_fn, shard_draw
+    from vq_seg_tpu_torch.training import easyhard_draws, semiweed_draws, unimatch_draws
+
+    shard = shard_batch_fn(mesh) if mesh is not None else (lambda x: x)
+    rows = batch[0].shape[0] // (1 if mesh is None else mesh.n_data)
+    l_img, target, ul = (shard(t) for t in batch)
+    l_img, ul = to_input(l_img).to(dtype), to_input(ul).to(dtype)
+    hw = l_img.shape[-2:]
+    if mode == "sup":
+        m = step(state, l_img, target, REPT_DROP)[1]
+    elif mode == "reptcps":
+        m = step(state, l_img, target, ul, REPT_DROP)[1]
+    elif mode == "easyhard":
+        m = step(state, l_img, target, ul, *easyhard_draws(c, "cuda")(hw))[1]
+    elif mode == "angularv3":
+        m = step(state, l_img, target, ul, 0.5)[1]
+    elif mode == "semiweed":
+        case1, case2, keeps = semiweed_draws(c, "cuda")()
+        m = step(state, l_img, target, ul, case1, case2,
+                 tuple(shard_draw(k, mesh, rows) for k in keeps))[1]
+    elif mode == "unimatch":
+        box_1, box_2, dropout, fp = unimatch_draws(c, "cuda")(hw)
+        m = step(state, l_img, target, ul, box_1, box_2, shard_draw(dropout, mesh, rows),
+                 shard_draw(fp, mesh, rows))[1]
+    elif mode == "salientcps":
+        l_sal, ul_sal = (shard(s).to(dtype) for s in sal)
+        m = step(state, l_img, target, l_sal, ul, ul_sal)[1]
+    else:
+        m = step(state, l_img, target, ul)[1]
+    float(m["loss"])
+    return m
+
+
+def mode17_terms(metrics) -> dict:
+    return {k: float(v) for k, v in metrics.items() if v.numel() == 1 and k != "miou"}
+
+
+def mode17_batches(hw: int):
+    """Two global batches of 4+4 (init, step) and the step's saliency maps."""
+    batches = batch_cache(SEED + 17)(hw, 2)
+    rng = np.random.default_rng(SEED + 17)
+    sal = tuple(torch.from_numpy(rng.random((TRAIN_BATCH, hw, hw), np.float32)).cuda()
+                for _ in range(2))
+    return batches, sal
+
+
+def _reset17(state, post):
+    """The held models at ``post`` (state dicts by index), gradients and
+    Adam moments cleared, the step at 0."""
+    from vq_seg_tpu_torch.training.supervised import TrainState
+
+    pairs = ([(state.model, state.opt)] if isinstance(state, TrainState)
+             else [(m, o) for _, m, o in state.held()])
+    for (m, o), sd in zip(pairs, post):
+        m.load_state_dict(sd)
+        m.zero_grad(set_to_none=True)
+        o.state.clear()
+    state.step = 0
+
+
+def _models17(state) -> list:
+    from vq_seg_tpu_torch.training.supervised import TrainState
+
+    return [state.model] if isinstance(state, TrainState) else [m for _, m, _ in state.held()]
+
+
+def _grads17(state) -> dict:
+    return {f"{i}.{n}": p.grad.detach().cpu() for i, m in enumerate(_models17(state))
+            for n, p in m.named_parameters() if p.grad is not None}
+
+
+@contextlib.contextmanager
+def supcon_recorded(record):
+    """While on, each call of the contrastive loss that ``supconvqunet``
+    makes keeps its first two items and labels, detached, in ``record``
+    (nothing is kept where ``record`` is None)."""
+    from vq_seg_tpu_torch.models.networks import unet
+
+    inner = unet.supcon_loss
+
+    def recorded(x, label, *args, **kwargs):
+        record.append((x[:2].detach().clone(), label[:2].clone()))
+        return inner(x, label, *args, **kwargs)
+
+    if record is not None:
+        unet.supcon_loss = recorded
+    try:
+        yield
+    finally:
+        unet.supcon_loss = inner
+
+
+def supcon_against_f64(m: dict, ref_m: dict, rec_dp: list, rec_ref: list, weight: float):
+    """Phase 17(a)'s check of ``supconcps``'s contrastive term on its own
+    scale: the plain formula in f64 (``supcon_loss`` outside any group) on
+    the inputs each step recorded, weighted as the step weights it.  The DP
+    step's f32 term must lie within ``PAR17_LOSS_TOL`` of the f64 term of
+    its own inputs (f32 rounding alone) and within ``PAR17_SUPCON_TOL`` of
+    the meshless step's."""
+    from vq_seg_tpu_torch.losses.contrastive import supcon_loss
+
+    check(len(rec_dp) == len(rec_ref) == 2,
+          f"contrastive loss calls: DP {len(rec_dp)}, meshless {len(rec_ref)}, expected 2")
+    with torch.no_grad():
+        dp64, ref64 = (weight * sum(float(supcon_loss(x.double(), g)) for x, g in rec)
+                       for rec in (rec_dp, rec_ref))
+        # |logit| <= max |f1| max |f2| / temperature (supconvqunet calls
+        # supcon_loss at its default) over the pixels' features
+        temperature = inspect.signature(supcon_loss).parameters["temperature"].default
+        norms = [x.double().norm(dim=1).amax(dim=(1, 2)) for x, _ in rec_ref]
+        logit_bound = max(float(n[0] * n[1]) for n in norms) / temperature
+    dp32, ref32 = m["sup_con_loss"], ref_m["sup_con_loss"]
+    res = {"dp32": dp32, "dp64": dp64, "meshless32": ref32, "meshless64": ref64,
+           "own": abs(dp32 - dp64) / abs(dp64), "meshless": abs(dp32 - ref64) / abs(ref64),
+           "meshless_f32": abs(ref32 - ref64) / abs(ref64), "logit_bound": logit_bound}
+    print(f"[par17-supconcps] the contrastive term on its own scale: the DP step's f32 "
+          f"{dp32:.9e} against the f64 formula on its inputs {dp64:.9e} ({res['own']:.3e}, "
+          f"limit {PAR17_LOSS_TOL}) and on the meshless step's {ref64:.9e} "
+          f"({res['meshless']:.3e}, limit {PAR17_SUPCON_TOL}); the meshless step's f32 "
+          f"{ref32:.9e} ({res['meshless_f32']:.3e} "
+          f"from its f64); the logits' bound {logit_bound:.4g}")
+    check(res["own"] <= PAR17_LOSS_TOL and res["meshless"] <= PAR17_SUPCON_TOL,
+          f"supconcps contrastive term against f64: {res}")
+    return res
+
+
+def modes_child(rank: int, job_dir: str) -> int:
+    """Phase 17(b), one of two ranks on the one card (gloo over CUDA
+    tensors, DP-2): for each mode of ``PAR17_CHILD_MODES`` the state the
+    parent wrote, once the parent's references are done (its ``GO`` file)
+    one untimed step, back to that state, then the compared f32 step with
+    its collectives timed.  Writes ``rank{r}.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from vq_seg_tpu_torch.ops import vq_cuda
+    from vq_seg_tpu_torch.parallel import collectives, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    vq_cuda.build()
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(job_dir, 'store')}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=PAR17_MODES_TIMEOUT_S))
+    try:
+        mesh = make_mesh(2, 1)
+        out = {}
+        for mode in PAR17_CHILD_MODES:
+            name = dict(MODES17)[mode]
+            c = mode17_cfg(mode, name)
+            batches, sal = mode17_batches(int(c.resize))
+            post = torch.load(os.path.join(job_dir, f"{mode}_post.pt"), map_location="cuda",
+                              weights_only=True)
+            state, _ = mode17_state(mode, c, mesh, batches[0])
+            step = mode17_step(mode, c, state, mesh)
+            _reset17(state, post)
+            t0 = time.perf_counter()
+            while not os.path.exists(os.path.join(job_dir, "GO")):  # the parent's references
+                check(time.perf_counter() - t0 < PAR17_MODES_TIMEOUT_S, "no GO from the parent")
+                time.sleep(0.05)
+            vq_cuda.launches = 0
+            t0 = time.perf_counter()
+            mode17_run(mode, c, state, step, batches[1], sal, mesh)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            _reset17(state, post)
+            collectives.timing(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = mode17_run(mode, c, state, step, batches[1], sal, mesh)
+            ms = (time.perf_counter() - t0) * 1e3
+            coll = collectives.stats["seconds"]
+            collectives.timing(False)
+            res = {"terms": mode17_terms(m), "launches": vq_cuda.launches, "first_ms": first_ms,
+                   "ms": ms, "collective_s": coll}
+            if mesh.data_index == 0:
+                res["grads"] = _grads17(state)
+            out[mode] = res
+            del state, step
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(job_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def modes_phase(cfg, card: str, vq_cuda) -> dict:
+    """Phase 17: (a) each of the eleven modes' DP step on world 1 over
+    NCCL against its meshless step; (b) ``unimatch`` and ``semiweed`` on
+    two gloo ranks against the single process and the f64 step; (c) ZeRO-1
+    with gradient accumulation on the flagship, bitwise a replicated
+    ``MultiStepAdam``."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vq_seg_tpu_torch.parallel import collectives, make_mesh
+    from vq_seg_tpu_torch.parallel.distributed import initialize
+
+    out = {"a": {}, "b": {}}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize(f"tcp://localhost:{port}", 1, 0, backend="nccl")
+    t0 = time.perf_counter()
+    try:
+        mesh = make_mesh(1, 1)
+        # -- (a) -------------------------------------------------------------------------------
+        for mode, name in MODES17:
+            t_mode = time.perf_counter()
+            c = mode17_cfg(mode, name)
+            hw = int(c.resize)
+            check(c.train.batch_size == TRAIN_BATCH, f"{mode}: batch size {c.train.batch_size}")
+            half = mode == "sup" and bool(c.train.half)
+            batches, sal = mode17_batches(hw)
+            state, init_launches = mode17_state(mode, c, mesh, batches[0])
+            t_setup = time.perf_counter() - t_mode
+            # the meshless step (untimed: phases 8-13 time it), then the DP
+            # step from the same state and batch, profiled, with every
+            # collective synchronised around and timed
+            rec_ref, rec_dp = [], []
+            ref = copy.deepcopy(state)
+            t1 = time.perf_counter()
+            with supcon_recorded(rec_ref if mode == "supconcps" else None):
+                ref_m = mode17_terms(mode17_run(mode, c, ref, mode17_step(mode, c, ref, None),
+                                                batches[1], sal, None))
+            ref_ms = (time.perf_counter() - t1) * 1e3
+            del ref
+            step = mode17_step(mode, c, state, mesh)
+            collectives.timing(True)
+            vq_cuda.launches = 0
+            got = {}
+
+            def timed(i):
+                t1 = time.perf_counter()
+                got["m"] = mode17_terms(mode17_run(mode, c, state, step, batches[1], sal, mesh))
+                got["ms"] = (time.perf_counter() - t1) * 1e3
+
+            t1 = time.perf_counter()
+            with supcon_recorded(rec_dp if mode == "supconcps" else None):
+                prof = profile_window(timed, 1, "step", f"par17-{mode}-profile",
+                                      f"{mode} DP step, world 1 on NCCL", card)
+            m, ms = got["m"], got["ms"]
+            prof_s = time.perf_counter() - t1 - ms / 1e3
+            coll_s, calls = collectives.stats["seconds"], dict(collectives.stats["calls"])
+            collectives.timing(False)
+            launches = vq_cuda.launches
+            want_init, want_step = LAUNCHES17[mode]
+            tol = PAR17_LOSS_TOL_BF16 if half else PAR17_LOSS_TOL
+            # each term relative to itself (a term that is 0 in the meshless
+            # step must be 0); the contrastive term on its own below
+            errs = {k: abs(m[k] - ref_m[k]) / max(abs(ref_m[k]), 1e-30) for k in ref_m
+                    if not (mode == "supconcps" and k == "sup_con_loss")}
+            err = max(errs.values())
+            supcon = None
+            if mode == "supconcps":
+                supcon = supcon_against_f64(m, ref_m, rec_dp, rec_ref,
+                                            float(c.train.get("total_sup_con_loss_weight", 1.0)))
+            print(f"[par17-{mode}] {name if not name.endswith('.json') else os.path.basename(name)}"
+                  f" ({c.model.name}, {c.model.params.encoder_name}), {hw}x{hw}, batch "
+                  f"{TRAIN_BATCH}+{TRAIN_BATCH}, {'bf16' if half else 'f32'}, world 1 on NCCL: "
+                  f"init {init_launches} vq_assign launches, the DP step {launches} (expected "
+                  f"{want_init} + {want_step}); the DP step, profiled, {ms:.3f} ms with every "
+                  f"collective synchronised around (the meshless step {ref_ms:.3f} ms), the "
+                  f"collectives {100 * coll_s * 1e3 / ms:.1f} % of it "
+                  f"({sum(calls.values())} calls: {calls}); its device time "
+                  f"{prof['device_ms'] if prof else float('nan'):.3f} ms; its loss terms against "
+                  f"the meshless step's, each relative to itself, max {err:.3e} (limit {tol}); "
+                  f"the mode in {time.perf_counter() - t_mode:.1f} s (models and init "
+                  f"{t_setup:.1f} s, the profile's processing {prof_s:.1f} s) | {card}")
+            print(f"[par17-{mode}] " + ", ".join(f"{k} {v:.6g} ({errs[k]:.2e})" if k in errs
+                                                 else f"{k} {v:.6g}" for k, v in m.items()))
+            check(init_launches == want_init and launches == want_step,
+                  f"{mode} launches {init_launches} + {launches}, expected "
+                  f"{want_init} + {want_step}")
+            check(all(np.isfinite(list(m.values()))), f"non-finite {mode} loss terms {m}")
+            check(err <= tol, f"{mode} DP loss terms differ from the meshless step's: {errs}")
+            out["a"][mode] = {"init": init_launches, "steps": [launches], "ms": ms,
+                              "meshless_ms": ref_ms, "share": coll_s * 1e3 / ms,
+                              "device_ms": prof["device_ms"] if prof else None,
+                              "loss_err": err, "supcon": supcon,
+                              "seconds": time.perf_counter() - t_mode}
+            del state, step
+            torch.cuda.empty_cache()
+        print(f"[par17] (a) in {time.perf_counter() - t0:.1f} s")
+        # -- (c) ZeRO-1 with gradient accumulation on the flagship -----------------------------
+        t0 = time.perf_counter()
+        out["c"] = zero_accum17(cfg, card, mesh)
+        print(f"[par17] (c) in {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    # -- (b) two gloo ranks on the card ----------------------------------------------------------
+    t0 = time.perf_counter()
+    job_dir = tempfile.mkdtemp(prefix="vq_seg_par17_")
+    try:
+        states = {}
+        for mode in PAR17_CHILD_MODES:
+            c = mode17_cfg(mode, dict(MODES17)[mode])
+            states[mode] = (c, mode17_state(mode, c, None, mode17_batches(int(c.resize))[0][0])[0])
+            torch.save([{k: v.cpu() for k, v in m.state_dict().items()}
+                        for m in _models17(states[mode][1])],
+                       os.path.join(job_dir, f"{mode}_post.pt"))
+        # the ranks start up (about 10 s) while the references run here; they
+        # take their first step once the references are done (GO), so that
+        # no step of theirs shares the card with this process's
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK")}
+        logs = [open(os.path.join(job_dir, f"rank{r}.log"), "w+") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--modes-child",
+                                   str(r), job_dir], env=env, stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(2)]
+        refs = {}
+        for mode in PAR17_CHILD_MODES:
+            c, state = states.pop(mode)
+            batches, sal = mode17_batches(int(c.resize))
+            single = copy.deepcopy(state)
+            ref_m = mode17_terms(mode17_run(mode, c, single, mode17_step(mode, c, single, None),
+                                            batches[1], sal, None))
+            ref_g = _grads17(single)
+            del single
+            wide = copy.deepcopy(state)
+            for m in _models17(wide):
+                m.double()
+            with _f64_floats():
+                m64 = mode17_terms(mode17_run(mode, c, wide, mode17_step(mode, c, wide, None),
+                                              batches[1], sal, None, torch.float64))
+            g64 = _grads17(wide)
+            del wide, state
+            torch.cuda.empty_cache()
+            single_err = {k: rel_l2(t, g64[k]) for k, t in ref_g.items()}
+            refs[mode] = (ref_m, m64, g64, single_err)
+        torch.cuda.synchronize()
+        open(os.path.join(job_dir, "GO"), "w").close()
+        try:
+            for p in procs:
+                p.wait(timeout=PAR17_MODES_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.seek(0)
+                text = f.read()
+                f.close()
+                if text.strip():
+                    print("\n".join(f"[par17-child] {line}" for line in text.splitlines()[-40:]))
+        check(all(p.returncode == 0 for p in procs),
+              f"phase 17 ranks exited {[p.returncode for p in procs]}")
+        ranks = [torch.load(os.path.join(job_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        for mode in PAR17_CHILD_MODES:
+            ref_m, m64, g64, single_err = refs[mode]
+            rs = [r[mode] for r in ranks]
+            grads = rs[0]["grads"]
+            loss_err = max(abs(rs[0]["terms"][k] - ref_m[k]) / max(abs(ref_m[k]), 1e-30)
+                           for k in ref_m)
+            loss64 = max(abs(ref_m[k] - m64[k]) / max(abs(m64[k]), 1e-30) for k in m64)
+            share64, worst64 = _against_f64(grads, g64, single_err, STEP_GRAD_TOL)
+            share = [r["collective_s"] * 1e3 / r["ms"] for r in rs]
+            print(f"[par17-{mode}-dp2] f32 step on two gloo ranks sharing the card, global batch "
+                  f"{TRAIN_BATCH}+{TRAIN_BATCH}: launches per rank {[r['launches'] for r in rs]}; "
+                  f"loss terms against the single-process step max relative difference "
+                  f"{loss_err:.3e} (limit {STEP_LOSS_TOL}; the f32 step against f64 "
+                  f"{loss64:.3e}); gradients against the f64 step, each within "
+                  f"{STEP_GRAD_TOL} + 2 x the single f32 step's own distance: "
+                  f"{100 * share64:.1f} % of the bound at most ({worst64}); per rank the first "
+                  f"step {[round(r['first_ms'], 3) for r in rs]} ms, the compared step "
+                  f"{[round(r['ms'], 3) for r in rs]} ms, the collectives "
+                  f"{[round(100 * x, 1) for x in share]} % of it | {card}")
+            check(all(r["launches"] == 0 for r in rs), f"{mode} DP-2 launched the kernel")
+            check(set(grads) == set(g64), f"{mode}: gradients of {len(grads)} tensors")
+            check(loss_err <= STEP_LOSS_TOL, f"{mode} DP-2 loss terms differ by {loss_err}")
+            check(share64 <= 1.0, f"{mode} DP-2 gradients against f64: {worst64}")
+            out["b"][mode] = {"loss_err": loss_err, "f64_share": share64,
+                              "first_ms": [r["first_ms"] for r in rs],
+                              "ms": [r["ms"] for r in rs], "share": share,
+                              "launches": [r["launches"] for r in rs]}
+    finally:
+        shutil.rmtree(job_dir, ignore_errors=True)
+    print(f"[par17] (b) in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def zero_accum17(cfg, card: str, mesh) -> dict:
+    """Phase 17(c): the flagship's f32 DP step on ``mesh`` with ZeRO-1 and
+    ``grad_accum_steps`` 2 for 2 micro-steps; after each, a replicated
+    ``MultiStepAdam`` from the post-init state, given the same gradients
+    and LR, must hold bitwise the same parameters, and after the first the
+    consolidated state dict its ``mini_step`` and ``acc_grads``."""
+    from vq_seg_tpu_torch.training import (cps_init_phase, create_cps_state, make_cps_train_step,
+                                           make_lr_schedule)
+    from vq_seg_tpu_torch.training.cps import MultiStepAdam
+
+    dice, step_kw, batches = _par_setup(cfg)
+    state = create_cps_state(cfg.model, make_lr_schedule(cfg.train, steps_per_epoch=3),
+                             seed=SEED, init_weights=bool(cfg.train.init_weights),
+                             grad_accum_steps=2, mesh=mesh, zero=True)
+    cps_init_phase(state, to_input(batches[0][0]), batches[0][1],
+                   float(cfg.train.confidence_threshold), seed=SEED, mesh=mesh)
+    refs = []
+    for _, m, _ in state.held():
+        params = [p.detach().clone().requires_grad_(True) for p in m.parameters()]
+        refs.append((params, MultiStepAdam(params, 2)))
+    step = make_cps_train_step(dice, mesh=mesh, half=False, **step_kw)
+    res = {"max_abs_diff": [], "lr": []}
+    for micro in range(2):
+        lr = state.schedule(state.updates)
+        l_img, target, ul_img = batches[1 + micro]
+        _, metrics, _, _ = step(state, to_input(l_img), target, to_input(ul_img))
+        check(np.isfinite(float(metrics["loss"])), "non-finite ZeRO step loss")
+        diff = 0.0
+        for (_, m, _), (params, opt) in zip(state.held(), refs):
+            for p, q in zip(m.parameters(), params):
+                q.grad = None if p.grad is None else p.grad.detach().clone()
+            opt.param_groups[0]["lr"] = lr
+            opt.step()
+            diff = max([diff] + [float((p.detach() - q.detach()).abs().max())
+                                 for p, q in zip(m.parameters(), params)])
+        res["max_abs_diff"].append(diff)
+        res["lr"].append(lr)
+        if micro == 0:
+            sd_ok = []
+            for (_, _, zopt), (params, opt) in zip(state.held(), refs):
+                zopt.consolidate_state_dict(to=0)
+                sd, want = zopt.state_dict(), opt.state_dict()
+                sd_ok.append(sd["mini_step"] == want["mini_step"] == 1
+                             and sorted(sd["acc_grads"]) == sorted(want["acc_grads"])
+                             == list(range(len(params)))
+                             and all(torch.equal(sd["acc_grads"][i].to(want["acc_grads"][i].device),
+                                                 want["acc_grads"][i]) for i in want["acc_grads"]))
+            res["state_dict"] = sd_ok
+    print(f"[par17-zero] the flagship's f32 DP step, world 1 on NCCL, ZeRO-1 over "
+          f"MultiStepAdam (grad_accum_steps 2): parameters against a replicated MultiStepAdam on "
+          f"the same gradients after micro-steps 1 and 2, max |d| {res['max_abs_diff']} (limit 0: "
+          f"bitwise) at LR {res['lr']}; the consolidated state after micro-step 1 holds "
+          f"mini_step 1 and every parameter's acc_grads, bitwise the replicated one's: "
+          f"{res['state_dict']} | {card}")
+    check(all(d == 0.0 for d in res["max_abs_diff"]), f"ZeRO accumulation differs {res}")
+    check(all(res["state_dict"]), "ZeRO's consolidated state lacks the accumulation")
+    check(res["lr"][0] > 0, "the LR at update 0 is 0: the comparison would not see Adam")
+    del state, refs
+    torch.cuda.empty_cache()
+    return res
+
+
 def _no_grad_train_pass(model, x):
     """One train-mode forward of ``model`` on ``x`` without gradients, on a
     copy (the running statistics of ``model`` stay)."""
@@ -4061,25 +4648,9 @@ def main() -> int:
     from vq_seg_tpu_torch.ops.vq import vq_assign_reference
     from vq_seg_tpu_torch.serving import Predictor
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # the logger must never reach the network: wandb, where installed, is
-    # switched off (without it the logger writes JSONL)
-    os.environ["WANDB_MODE"] = "disabled"
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-    print("[device] TF32 off: torch.backends.cuda.matmul.allow_tf32=False, "
-          "torch.backends.cudnn.allow_tf32=False")
-
     # -- 2. build ----------------------------------------------------------
-    info = vq_cuda.build()
-    print(f"[build] {os.path.relpath(vq_cuda.SOURCE, ROOT)} -> "
-          f"{os.path.relpath(info['path'], ROOT)}: "
-          f"{'built' if info['built'] else 'reused'} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    card = card_setup()
+    kind = torch.cuda.get_device_name(0)
 
     # -- 3. serving path at full width -------------------------------------
     t_phase = time.perf_counter()
@@ -4270,7 +4841,12 @@ def main() -> int:
                          pred32, batches, train["p50"])
     print(f"[par] phase 16 in {time.perf_counter() - t_par:.1f} s | {card}")
 
-    # -- 17. result lines -----------------------------------------------------------
+    # -- 17. the other eleven modes on a mesh, ZeRO-1 with accumulation
+    t_modes = time.perf_counter()
+    modes = modes_phase(cfg, card, vq_cuda)
+    print(f"[par17] phase 17 in {time.perf_counter() - t_modes:.1f} s | {card}")
+
+    # -- 18. result lines -----------------------------------------------------------
     main_path = results[:len(captured)]  # the three shapes the serving forward gave
     shape_keys = ("case", "n", "c", "k", "ms", "plain_ms", "bound_ms", "f32_simt_bound_ms",
                   "near_ties", "max_abs_err")
@@ -4454,6 +5030,22 @@ def main() -> int:
                                        **{layout: par[layout]["peak_gib"]
                                           for layout in ("dp2", "pair2", "zero2")}},
         "nccl_dp_p50_ms": par["nccl"]["p50"],
+        # phase 17: per rank, the init phase and the DP step (profiled, its
+        # collectives timed) of each of the eleven other modes on world 1
+        # over NCCL; the compared step of unimatch and semiweed on each of
+        # two gloo ranks
+        "launches_modes": {
+            **{mode: {"init": r["init"], "steps": r["steps"]} for mode, r in modes["a"].items()},
+            **{f"{mode}_dp2": r["launches"] for mode, r in modes["b"].items()}},
+        "modes_step_ms": {mode: r["ms"] for mode, r in modes["a"].items()},
+        "modes_meshless_step_ms": {mode: r["meshless_ms"] for mode, r in modes["a"].items()},
+        "modes_device_ms": {mode: r["device_ms"] for mode, r in modes["a"].items()},
+        "modes_collective_share": {mode: r["share"] for mode, r in modes["a"].items()},
+        "modes_loss_err": {mode: r["loss_err"] for mode, r in modes["a"].items()},
+        "modes_supcon_rel_err_f64": {k: modes["a"]["supconcps"]["supcon"][k]
+                                     for k in ("own", "meshless")},
+        "modes_dp2_f64_bound_share": {mode: r["f64_share"] for mode, r in modes["b"].items()},
+        "zero_accum_max_abs_diff": modes["c"]["max_abs_diff"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
@@ -4465,4 +5057,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-child"]:  # a rank of phase 16(b)-(c)
         sys.exit(parallel_child(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--modes-child"]:  # a rank of phase 17(b)
+        sys.exit(modes_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -1,5 +1,6 @@
-"""Worker process of the port's gloo tests (``tests/test_torch_parallel.py``
-and ``tests/test_torch_parallel_driver.py``), in the pattern of
+"""Worker process of the port's gloo tests (``tests/test_torch_parallel.py``,
+``tests/test_torch_parallel_driver.py`` and
+``tests/test_torch_parallel_modes*.py``), in the pattern of
 ``tests/_mp_worker.py``.  It imports torch, numpy and the port only: never
 ``tests/conftest.py`` or JAX.
 
@@ -208,7 +209,225 @@ def task_train(job, rank):
     return {"history": history, "step": state.step}
 
 
-TASKS = {"steps": task_steps, "train": task_train}
+def _run_mode(job, mesh, mode, compare=True):
+    """``mode``'s step on ``mesh`` (this rank's shard of the job's global
+    batch), then, on the rank (0, 0) of the mesh, the single-process step
+    from the same start on the whole batch and their distances
+    (``_parallel_modes.compare``).  Every rank returns its metrics and a
+    digest of its parameters after the step."""
+    import _parallel_modes as pm
+
+    cfg = pm.tiny_cfg(mode)
+    batch = job["batch"]
+    start = job.get("start", {}).get(mode)
+    masks = job.get("masks", {}).get(mode)
+    state = pm.make_state(mode, cfg, batch, mesh, start)
+    metrics = pm.run_step(mode, cfg, state, pm.make_step(mode, cfg, state, mesh), batch, mesh,
+                          masks)
+    res = {"coords": (mesh.data_index, mesh.model_index), "metrics": metrics,
+           "digest": pm.param_digest(state), "step": state.step}
+    if mode in job.get("keep_grads", ()) and mesh.data_index == 0 and mesh.model_index == 0:
+        res["grads"] = {k: g.float() for k, g in pm.snapshot(state)["grads"].items()}
+    if compare and mesh.rank == mesh.ranks[0]:
+        snap = pm.snapshot(state)
+        del state
+        single = pm.make_state(mode, cfg, batch, None, start)
+        want_m = pm.run_step(mode, cfg, single, pm.make_step(mode, cfg, single), batch,
+                             None, masks)
+        res["single_metrics"] = want_m
+        res["compare"] = pm.compare(metrics, snap, want_m, pm.snapshot(single))
+    return res
+
+
+def _run_cross(mesh):
+    """The cross-item operations inside ``data_parallel`` on this rank's
+    rows against the same functions on the whole batch in this process:
+    values, and each input's gradient (divided by the ranks, the mean that
+    ``average_gradients`` takes) against the single process's rows."""
+    from vq_seg_tpu_torch.data.augmentations import cutmix, make_cutout_mask
+    from vq_seg_tpu_torch.losses import dc_loss, supcon_loss
+    from vq_seg_tpu_torch.parallel import data_parallel, shard_batch_fn
+    from vq_seg_tpu_torch.parallel.collectives import batch_sum
+    from vq_seg_tpu_torch.parallel.mesh import shard_draw
+
+    shard = shard_batch_fn(mesh)
+    r = mesh.n_data
+    g = torch.Generator().manual_seed(11)
+    out = {}
+
+    def both(name, fn, *inputs):
+        """fn(*inputs) -> scalar, on the whole batch and on the shards."""
+        vals, grads = [], []
+        for group, xs in ((None, inputs), (mesh.data_group, [shard(x) for x in inputs])):
+            xs = [x.detach().clone().requires_grad_(x.is_floating_point()) for x in xs]
+            with data_parallel(group):
+                v = fn(*xs)
+            v.backward()
+            vals.append(float(v))
+            grads.append([None if x.grad is None else x.grad / (1 if group is None else r)
+                          for x in xs])
+        out[name] = {"value": vals[1], "single": vals[0],
+                     "grad_err": max(float((gm - shard(gs)).abs().max())
+                                     for gs, gm in zip(*grads) if gs is not None)}
+
+    for n in (r, 2 * r):  # one item per rank, then two
+        x = torch.randn(n, 3, 8, 8, generator=g, dtype=torch.float64)
+        w = torch.randn(n, 3, 8, 8, generator=g, dtype=torch.float64)
+        labels = torch.randint(0, 3, (n, 8, 8), generator=g)
+        mask = make_cutout_mask(g, (8, 8), 0.5)
+        both(f"cutmix_{n}", lambda xx, ww: batch_sum(torch.sum(cutmix(xx, mask) * ww)), x, w)
+        mixed = cutmix(labels, mask)
+        with data_parallel(mesh.data_group):
+            out[f"cutmix_labels_{n}"] = bool(torch.equal(cutmix(shard(labels), mask),
+                                                         shard(mixed)))
+        feats = torch.randn(n, 4, 8, 8, generator=g, dtype=torch.float64)
+        both(f"supcon_{n}", lambda f, lab: supcon_loss(f, lab, block_rows=16), feats, labels)
+        phi1 = torch.rand(n, 5, generator=g, dtype=torch.float64)
+        phi2 = torch.rand(n, 5, generator=g, dtype=torch.float64)
+        both(f"dc_{n}", dc_loss, phi1, phi2)
+        # a draw for a 2-block batch (UniMatch's perturbed pass): this rank's rows of each block
+        draw = lambda shape: torch.arange(shape[0] * 3).reshape(shape[0], 3)  # noqa: E731
+        rows = n // r
+        full = draw((2 * n, 3)).reshape(2, n, 3)
+        want = torch.cat([shard(full[0]), shard(full[1])])
+        out[f"draw_{n}"] = bool(torch.equal(shard_draw(draw, mesh, rows)((2 * rows, 3)), want))
+    return out
+
+
+def _run_zero_accum(mesh):
+    """Item 24 on a data-parallel mesh: ZeRO-1 over ``MultiStepAdam`` (k=2)
+    against a replicated ``MultiStepAdam`` on the same gradients (drawn
+    alike on every rank: the averaged gradients), after 2 and 4
+    micro-steps; the consolidated state after 3 micro-steps against the
+    replicated one; a ZeRO resume from it and a single-process resume from
+    it, each after the 4th micro-step, against the unbroken run."""
+    import copy
+
+    from vq_seg_tpu_torch.parallel import zero_adam
+    from vq_seg_tpu_torch.training.cps import MultiStepAdam
+
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Linear(6, 9), torch.nn.Linear(9, 7),
+                              torch.nn.Linear(7, 3), torch.nn.Linear(3, 2))
+    kw = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+    def micro(params, opt, i):
+        g = torch.Generator().manual_seed(100 + i)
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=g)
+        for group in opt.param_groups:
+            group["lr"] = 1e-2 * (1 + i // 2)
+        opt.step()
+
+    nets = {"zero": copy.deepcopy(net), "rep": copy.deepcopy(net)}
+    opts = {"zero": zero_adam(nets["zero"].parameters(), mesh.data_group, 2, **kw),
+            "rep": MultiStepAdam(nets["rep"].parameters(), 2)}
+    out = {"bitwise": {}, "local_accs": 0}
+    snap = {}
+    for i in range(4):
+        for k in ("zero", "rep"):
+            micro(list(nets[k].parameters()), opts[k], i)
+        if i in (1, 3):
+            out["bitwise"][i + 1] = all(torch.equal(a, b) for a, b in zip(
+                nets["zero"].parameters(), nets["rep"].parameters()))
+        if i == 2:
+            out["local_accs"] = len(opts["zero"].optim.acc_grads)
+            opts["zero"].consolidate_state_dict(to=0)
+            sd = None
+            if mesh.data_index == 0:  # (a state dict holds the live tensors: copy it)
+                sd, want = copy.deepcopy(opts["zero"].state_dict()), opts["rep"].state_dict()
+                out["state_equal"] = _same_tree(sd, want)
+                out["mini_step"] = (sd["mini_step"], want["mini_step"])
+            snap = {"params": copy.deepcopy(nets["zero"].state_dict()),
+                    "sd": _from_rank0(mesh, sd)}
+    final = [p.detach().clone() for p in nets["rep"].parameters()]
+    # a resume after the 3rd micro-step, on the mesh and in one process
+    for tag in ("zero", "rep"):
+        resumed = copy.deepcopy(net)
+        resumed.load_state_dict(snap["params"])
+        opt = (zero_adam(resumed.parameters(), mesh.data_group, 2, **kw) if tag == "zero"
+               else MultiStepAdam(resumed.parameters(), 2))
+        opt.load_state_dict(copy.deepcopy(snap["sd"]))
+        micro(list(resumed.parameters()), opt, 3)
+        out[f"resume_{tag}"] = all(torch.equal(a, b) for a, b in zip(resumed.parameters(),
+                                                                    final))
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _from_rank0(mesh, value):
+    box = [value]
+    dist.broadcast_object_list(box, mesh.ranks[0], group=mesh.group)
+    return box[0]
+
+
+def task_modes(job, rank):
+    """Rounds of meshes on disjoint rank sets (every rank builds every mesh
+    of a round); each mesh runs its list of scenarios: ``("mode", m)``
+    (``("mode", m, False)``: without the single-process comparison),
+    ``("cross",)`` or ``("zero_accum",)``."""
+    from vq_seg_tpu_torch.parallel import make_mesh
+
+    out = {}
+    for round_ in job["rounds"]:
+        meshes = [(name, runs, make_mesh(n_data, n_model, ranks=ranks))
+                  for name, runs, n_data, n_model, ranks in round_]
+        for name, runs, mesh in meshes:
+            if mesh is None:
+                continue
+            for run in runs:
+                key = f"{name}/{run[1] if len(run) > 1 else run[0]}"
+                if run[0] == "mode":
+                    out[key] = _run_mode(job, mesh, run[1], compare=len(run) < 3 or run[2])
+                elif run[0] == "cross":
+                    out[key] = _run_cross(mesh)
+                else:
+                    out[key] = _run_zero_accum(mesh)
+    return out
+
+
+def task_cli(job, rank):
+    """``python -m vq_seg_tpu_torch.train ARGV`` for each of the job's
+    ``argvs`` on every rank, the process group re-joined through a new store
+    before each (the CLI destroys it when it ends).  The mode's driver is
+    wrapped to record its history and the mesh it got."""
+    from vq_seg_tpu_torch import train as cli
+    from vq_seg_tpu_torch import training
+
+    out = []
+    for n, argv in enumerate(job["argvs"]):
+        if n:
+            dist.init_process_group("gloo", init_method=f"file://{job['store']}{n}", rank=rank,
+                                    world_size=job["world"],
+                                    timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        record = {"history": [], "mesh": None, "called": False}
+        name = job["drivers"][n]
+        real = getattr(training, name)
+
+        def driver(cfg, *, _real=real, _record=record, **kw):
+            _record.update(called=True, mesh=None if kw.get("mesh") is None
+                           else (kw["mesh"].n_data, kw["mesh"].n_model))
+            return _real(cfg, history=_record["history"], **kw)
+        setattr(training, name, driver)
+        try:
+            cli.main(argv)
+        finally:
+            setattr(training, name, real)
+        out.append(record)
+    return out
+
+
+TASKS = {"steps": task_steps, "train": task_train, "modes": task_modes, "cli": task_cli}
 
 
 def start(task: str, world: int, tmp_dir: str, **job):
@@ -259,9 +478,11 @@ def main(job_path, rank):
     try:
         out = TASKS[job["task"]](job, rank)
         torch.save(out, os.path.join(job["out"], f"rank{rank}.pt"))
-        dist.barrier()
+        if dist.is_initialized():
+            dist.barrier()
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -35,6 +35,7 @@ the CPU at resnet18 / K=8 / 64x64, batch 2, f32.
     and updates at ``schedule(2)``.  The port's own ``last.ckpt`` restored
     into a fresh state steps bitwise as the state that wrote it.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import copy
 import json
 import os

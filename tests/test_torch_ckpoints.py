@@ -16,6 +16,7 @@ package, on the CPU at resnet18 / K=4-8 / 64x64.
     ``create_cps_state`` loads it into both models before re-drawing the
     decoder and head; VGG/ConvNeXt files raise.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import os
 import tarfile
 

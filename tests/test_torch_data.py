@@ -14,6 +14,7 @@ the resize to 64 runs).
   * ``write_png``/``save_img`` round-trip through PIL bit-exact, and
     ``make_example_img`` equals JAX's.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import os
 import threading
 import time

@@ -50,7 +50,7 @@ from vq_seg_tpu_torch import train as train_cli
 from vq_seg_tpu_torch.config import Config
 from vq_seg_tpu_torch.data import BaseDataset, Loader
 from vq_seg_tpu_torch.models.networks import make_model
-from vq_seg_tpu_torch.training import cps, train_sup
+from vq_seg_tpu_torch.training import cps
 from vq_seg_tpu_torch.training.schedules import make_lr_schedule
 from vq_seg_tpu_torch.utils import ckpoints
 from vq_seg_tpu_torch.utils.convert import cps_state_from_flax, state_dict_from_flax
@@ -344,22 +344,14 @@ def test_train_cli_runs_on_the_cpu(synthetic_dataset, tmp_path):
     assert os.listdir(tmp_path / "runs" / "drv_hybrid_0" / "ckpoints") != []
 
 
-@pytest.mark.parametrize("knob,value", [("scan_steps", 2), ("fused_step", True),
-                                        ("zero_opt", True), ("mesh", object())])
+@pytest.mark.parametrize("knob,value", [("scan_steps", 2), ("fused_step", True)])
 def test_unported_knobs_raise(synthetic_dataset, tmp_path, knob, value):
-    """What is still unported raises, citing ROADMAP.md: ``zero_opt`` with
-    gradient accumulation, and a mesh in the drivers other than ``cps``
-    (``cps.train`` takes both since the parallel slice:
-    ``tests/test_torch_parallel_driver.py``)."""
-    cfg = _cfg(synthetic_dataset, str(tmp_path / "runs"),
-               **({} if knob == "mesh" else {knob: value}))
+    """What is still unported raises, citing ROADMAP.md: the TPU's step
+    compositions.  ``zero_opt`` with gradient accumulation and a mesh in
+    every mode are ported (``tests/test_torch_parallel_modes.py``)."""
+    cfg = _cfg(synthetic_dataset, str(tmp_path / "runs"), **{knob: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if knob == "mesh":
-            train_sup(Config(cfg), device="cpu", mesh=value)
-        else:
-            if knob == "zero_opt":
-                cfg["train"]["grad_accum_steps"] = 2
-            cps.train(Config(cfg), device="cpu")
+        cps.train(Config(cfg), device="cpu")
 
 
 @pytest.mark.parametrize("debug_nans", [True, False])

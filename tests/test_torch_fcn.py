@@ -32,6 +32,7 @@ Bounds:
     with JAX's masks: epoch averages within 1e-3 relative (mIoU 1e-3
     absolute), the same run directory and ``last.ckpt`` keys.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import json
 import os
 import shutil

@@ -11,6 +11,7 @@ against it on the CPU.
   * ``utils/logger.py::make_img_table``: None without wandb, and the same
     rows as the JAX package's through a stand-in wandb module.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import sys
 import types
 

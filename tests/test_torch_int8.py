@@ -14,6 +14,7 @@ resnet18 / K=8 / 64x64.
     quantized parameters take at most 0.55 of the bf16 model's bytes; and
     ``from_checkpoint(quant="int8")`` serves the same labels.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ The JAX variables (after JAX's own k-means codebook init phase) are carried
 across by ``state_dict_from_flax``.  Bounds: the same VQ idx exactly, and
 |dlogits|max <= 1e-3 for the whole eval forward.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import copy
 import warnings
 

@@ -20,6 +20,7 @@ Bounds:
   * ``build_pseudo_labels`` writes one mask of the label pixels per
     unlabelled input.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import os
 
 import numpy as np

@@ -29,6 +29,7 @@ Bounds:
   * ``multi_lr_adam``'s encoder group on the networks whose encoder sits at
     the top level.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import copy
 import json
 import os

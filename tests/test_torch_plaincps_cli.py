@@ -5,6 +5,7 @@ and K=8 in place of the configs' resnet50, convnext_base and K=512, whose
 widths the card runs in ``chip_smoke.py``.  The ``last.ckpt`` of each
 network is served by ``Predictor.from_checkpoint`` and swept by the test
 CLI; the checkpoints are deleted after each config."""
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import json
 import os
 import shutil

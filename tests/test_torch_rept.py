@@ -46,6 +46,7 @@ tests, and from flax's init compiled once (``_jit_dual_state``) for the
 step and the driver: op by op, flax's init compiles each random draw on
 its own.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import copy
 import json
 import os

@@ -23,6 +23,7 @@ Bounds:
     packages (the VQ-VAE's encoder at its top level, the codebooks by
     stage); ``vqvaev1``'s one codebook matches no stage in either package.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import os
 import shutil
 import warnings

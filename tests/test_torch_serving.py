@@ -8,6 +8,7 @@ differently).  Also pinned: ``output_hw``, partial-batch padding,
 checkpoint round trip, and that the entry points refuse to run on the CPU
 unless asked.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -16,6 +16,7 @@ entry points on the CPU (helpers in ``_slice_parity.py``):
     of ``nopt``) raise on a machine without a card, before they write
     anything.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import copy
 import json
 import os

@@ -32,6 +32,7 @@ Bounds:
     each network served by ``Predictor.from_checkpoint`` and swept by the
     test CLI.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import copy
 import json
 import os

@@ -11,6 +11,7 @@
     as it was given; without ``device="cpu"`` and without a card the
     objective raises.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import copy
 import json
 import math

@@ -18,6 +18,7 @@ drawn, before the init phase.  The tool converts the directory.  Then:
   * the port's driver resumes from the converted ``last.ckpt`` at JAX's
     update count and its LR.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import importlib.util
 import json
 import os

@@ -14,6 +14,7 @@
     on the CPU; the train CLI's ``--trace`` parses and writes one;
   * ``utils/processing.py::detach_numpy``.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import os
 from unittest import mock
 

@@ -38,6 +38,7 @@ on the CPU.
 The update from the kernel's idx and counts against the plain version's
 is a ``cuda`` test in ``tests/test_torch_vq.py`` (it needs no JAX).
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import contextlib
 import os
 import sys

@@ -11,6 +11,7 @@
   * without ``device="cpu"`` both drivers and the CLI raise on a machine
     without a card, before they write anything.
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import copy
 import json
 import os

@@ -20,6 +20,7 @@ labeled + 2 unlabeled (helpers in ``_vqpt_parity.py``):
     among them.  (On [0, 1] images its f32 encoder gradients differ by
     3e-3 between the packages.)
 """
+from _cleanup import delete_tmp_path  # noqa: F401 (autouse: tmp_path removed)
 import os
 
 import jax

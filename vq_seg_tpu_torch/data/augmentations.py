@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import batch_roll
+
 
 def make_cutout_mask(generator: torch.Generator, img_size: Tuple[int, int], ratio: float,
                      device=None) -> torch.Tensor:
@@ -46,9 +48,11 @@ def _broadcast(mask: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
 
 def cutmix(batch: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """``batch[i] * mask + batch[i + 1] * (1 - mask)``, the last item mixed
-    with the first, in ``batch``'s dtype (integer labels stay integers)."""
+    with the first, in ``batch``'s dtype (integer labels stay integers).
+    Inside ``parallel.data_parallel`` i runs over the global batch: each
+    rank's last item mixes with the next rank's first (``batch_roll``)."""
     m = _broadcast(mask, batch)
-    return batch * m + torch.roll(batch, -1, 0) * (1 - m)
+    return batch * m + batch_roll(batch) * (1 - m)
 
 
 class CutMix:

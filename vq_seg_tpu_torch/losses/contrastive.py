@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..models.layers import resize_nearest_exact
+from ..parallel.collectives import active_group, batch_head, batch_sum, group_rank
 
 # rows of f1 per block: a (4096, 65536) f32 block is 1 GiB
 BLOCK_ROWS = 4096
@@ -95,16 +96,26 @@ class SupConFunction(torch.autograd.Function):
 def supcon_loss(x: torch.Tensor, label: torch.Tensor, temperature: float = 0.04,
                 block_rows: int = BLOCK_ROWS) -> torch.Tensor:
     """x (N, C, h, w) with N >= 2; label (N, H, W) integers, resized to (h,
-    w) where they differ.  At least f32 whatever autocast says."""
+    w) where they differ.  At least f32 whatever autocast says.
+
+    Inside ``parallel.data_parallel`` the two items are the global batch's
+    first two, wherever they lie (``batch_head``: on the first rank, or on
+    the first two when a rank holds one item).  The group's first rank
+    computes the loss and the others contribute 0, keeping the gathered
+    rows in their graphs so that every rank joins the gather's backward;
+    the sum over the ranks is the loss on every rank."""
     n, c, h, w = x.shape
     if tuple(label.shape[1:]) != (h, w):
         label = resize_nearest_exact(label, (h, w))
     with torch.autocast(x.device.type, enabled=False):
-        rows = x[:2].to(torch.promote_types(x.dtype, torch.float32))
-        rows = rows.permute(0, 2, 3, 1).reshape(2, h * w, c)
-        g = label[:2].reshape(2, h * w)
-        return SupConFunction.apply(rows[0], rows[1], g[0], g[1], float(temperature),
+        first = batch_head(x, 2).to(torch.promote_types(x.dtype, torch.float32))
+        g = batch_head(label, 2).reshape(2, h * w)
+        if active_group() is not None and group_rank() != 0:
+            return batch_sum(torch.sum(first) * 0.0)
+        rows = first.permute(0, 2, 3, 1).reshape(2, h * w, c)
+        loss = SupConFunction.apply(rows[0], rows[1], g[0], g[1], float(temperature),
                                     int(block_rows))
+        return loss if active_group() is None else batch_sum(loss)
 
 
 class SupConLoss:

@@ -117,9 +117,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         group (sync-BN): the per-channel sum and count, then the sum of
         squared deviations from the global mean, each summed over the ranks
         by ``batch_sum``; autograd carries the gradient back through both.
-        f32 statistics, the output in ``x``'s dtype."""
+        Statistics in f32 (f64 for an f64 ``x``), the output in ``x``'s
+        dtype."""
         with torch.autocast(x.device.type, enabled=False):
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             c = x.shape[1]
             count = xf.new_full((1,), float(x.numel() // c))
             s1 = batch_sum(torch.cat([torch.sum(xf, dim=(0, 2, 3)), count]))

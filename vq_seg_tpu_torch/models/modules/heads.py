@@ -6,7 +6,8 @@ heads (``AngularSegmentationHead`` of ``vqashunet``,
 ``AngularSegmentationHeadv2`` of ``vqashunetv2`` and
 ``vqreptunetangular``, ``AngularSegmentationHeadv3`` of
 ``vqreptunetangularv3``), cosine classifiers over a trainable table of
-class embeddings.
+class embeddings.  Inside ``parallel.data_parallel`` the heads' loss means
+and the VQ head's code usage are those of the global batch.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch.nn as nn
 
 from ...ops.kmeans import kmeans, l2norm
 from ...ops.vq import code_usage_percent, commitment_loss, quantize_ste, vq_assign
+from ...parallel.collectives import batch_mean, batch_sum
 from ...utils.seg_tools import score_mask
 from ..layers import ConvPad, resize_nearest_exact, torch_conv_default, upsample_bilinear_ac
 from .prototype import (_class_major_onehot, _ProtoBase, arcface_phi, entropy_mask,
@@ -78,7 +80,7 @@ class _AngularHead(_ProtoBase):
             logits = logits * mask[None, :]
         positive = torch.sum(torch.where(onehot, logits, torch.zeros_like(logits)), dim=0)
         sum_all = torch.sum(torch.exp(logits), dim=0)
-        return -torch.mean(torch.log(torch.exp(positive) / (sum_all + 1e-7) + 1e-7)), logits
+        return -batch_mean(torch.log(torch.exp(positive) / (sum_all + 1e-7) + 1e-7)), logits
 
 
 def _class_scores(cosine: torch.Tensor, n: int, h: int, w: int) -> torch.Tensor:
@@ -161,7 +163,7 @@ class AngularSegmentationHeadv2(_AngularHead):
             if gt_map is not None:
                 class_feat = wn.detach().index_select(0, gt_map.reshape(-1))
                 class_feat = class_feat.reshape(n, h, w, c).permute(0, 3, 1, 2)
-                loss = loss + self.commit_weight * torch.mean((class_feat - y) ** 2)
+                loss = loss + self.commit_weight * batch_mean((class_feat - y) ** 2)
                 if self.orthogonal_reg_weight > 0:
                     loss = loss + orthogonal_loss_fn(self.embedding) * self.orthogonal_reg_weight
         return pred, loss
@@ -221,7 +223,7 @@ class AngularSegmentationHeadv3(_AngularHead):
                 loss, _ = self._margin_ce(cosine, gt.reshape(-1), mask)
                 class_feat = wn.detach().index_select(0, gt.reshape(-1))
                 class_feat = class_feat.reshape(n, h, w, c).permute(0, 3, 1, 2)
-                loss = loss + torch.mean((class_feat - y) ** 2)
+                loss = loss + batch_mean((class_feat - y) ** 2)
                 if self.orthogonal_reg_weight > 0:
                     loss = loss + orthogonal_loss_fn(self.embedding) * self.orthogonal_reg_weight
         return result, loss
@@ -280,7 +282,7 @@ class VQSegmentationHead(nn.Module):
                     torch.sum(flat ** 2, -1, keepdim=True) - 2 * flat @ cb.T
                     + torch.sum(cb ** 2, -1)[None, :], 0.0))
                 score = 1.0 - d / torch.sum(d, dim=-1, keepdim=True)
-            usage = code_usage_percent(counts)
+            usage = code_usage_percent(batch_sum(counts))
             loss = x.new_zeros(())
             quant = quant.reshape(n, h, w, self.edim).permute(0, 3, 1, 2)
             if train:

@@ -20,8 +20,7 @@ entropy-filtered losses of the ``reptcps`` networks
     ``percent``-ile, taken on the device (``torch.quantile``, numpy's
     ``linear`` method, as ``jnp.percentile``), so nothing is read back.
   * Inside ``parallel.data_parallel`` the percentile, the class means, the
-    k-means init and ``ReliablePrototypeLossv2``'s mean are those of the
-    global batch.
+    k-means init and every loss's mean are those of the global batch.
 """
 from __future__ import annotations
 
@@ -65,7 +64,7 @@ def eps_softmax_ce(logits: torch.Tensor, positive: torch.Tensor,
     lg = torch.log(torch.exp(positive) / (sum_all + 1e-7) + 1e-7)
     if mask is not None:
         lg = lg * mask
-    return -torch.mean(lg)
+    return -batch_mean(lg)
 
 
 def percentile(t: torch.Tensor, percent) -> torch.Tensor:
@@ -252,7 +251,7 @@ class ReliablePrototypeLoss(_MarginProtoBase):
             mask = entropy_mask(entropy, percent).float()
             positive = torch.sum(cosine * onehot, dim=0)
             sum_all = torch.sum(torch.exp(cosine), dim=0)
-            loss = -torch.mean(torch.log(torch.exp(positive) / (sum_all + 1e-7) + 1e-7) * mask)
+            loss = -batch_mean(torch.log(torch.exp(positive) / (sum_all + 1e-7) + 1e-7) * mask)
             if self.orthogonal_reg_weight > 0:
                 loss = loss + orthogonal_loss_fn(table) * self.orthogonal_reg_weight
         return loss
@@ -270,7 +269,7 @@ class ReliableEuclideanPrototypeLoss(_ProtoBase):
             table = self._table(flat_x, flat_gt, init_protos, generator)
             mask = entropy_mask(entropy, percent).float()[:, None]
             gt_embed = table.index_select(0, flat_gt)
-            loss = torch.mean((flat_x * mask - gt_embed * mask) ** 2)
+            loss = batch_mean((flat_x * mask - gt_embed * mask) ** 2)
         return loss
 
 
@@ -299,7 +298,7 @@ class StableTemperaturedPrototypeLoss(_ProtoBase):
             positive = torch.exp(
                 torch.sum(torch.where(onehot, cosine, torch.zeros_like(cosine)), dim=0) / self.t)
             sum_all = torch.sum(torch.exp(cosine) / self.t, dim=0)
-            loss = -torch.mean(torch.log(positive / (sum_all + 1e-7) + 1e-7))
+            loss = -batch_mean(torch.log(positive / (sum_all + 1e-7) + 1e-7))
             if self.orthogonal_reg_weight > 0:
                 loss = loss + orthogonal_loss_fn(table) * self.orthogonal_reg_weight
         return loss
@@ -340,7 +339,7 @@ class OnlyCWPrototypeLoss(_MarginProtoBase):
             positive = torch.sum(torch.where(onehot, cosine, torch.zeros_like(cosine)), dim=0)
             sum_all = torch.sum(torch.exp(cosine), dim=0)
             lg = torch.log(torch.exp(positive) / (sum_all + 1e-7) + 1e-7) * mask.float()
-            loss = -torch.mean(lg)
+            loss = -batch_mean(lg)
             if self.orthogonal_reg_weight > 0:
                 loss = loss + orthogonal_loss_fn(table) * self.orthogonal_reg_weight
         return loss
@@ -362,7 +361,7 @@ class PrototypeLoss(_MarginProtoBase):
                 l2norm(table).detach() @ l2norm(flat_x).T, flat_gt)  # class-major (K, M)
             positive = torch.sum(cosine * onehot, dim=0)
             sum_all = torch.sum(torch.exp(cosine), dim=0)
-            loss = -torch.mean(torch.log(torch.exp(positive) / (sum_all + 1e-7) + 1e-7))
+            loss = -batch_mean(torch.log(torch.exp(positive) / (sum_all + 1e-7) + 1e-7))
         return loss
 
 
@@ -376,7 +375,7 @@ class EuclideanPrototypeLoss(_ProtoBase):
             flat_x, flat_gt = _flatten_with_gt(x, gt)
             table = self._table(flat_x, flat_gt, init_protos, generator)
             target = table.detach().index_select(0, flat_gt)
-            loss = torch.mean((target - flat_x) ** 2)
+            loss = batch_mean((target - flat_x) ** 2)
         return loss
 
 
@@ -404,7 +403,8 @@ class LearnableEuclideanPrototypeLoss(_ProtoBase):
             table = self._table(flat_x, flat_gt, init_protos, generator).detach()
             d = _distances(flat_x, table)  # (M, K)
             onehot = _class_major_onehot(flat_gt, self.num_classes).T.float()  # (M, K)
-            per_class = torch.sum(d * onehot, dim=0) / torch.clamp_min(onehot.sum(0), 1.0)
+            per_class = (batch_sum(torch.sum(d * onehot, dim=0))
+                         / torch.clamp_min(batch_sum(onehot.sum(0)), 1.0))
             loss = torch.mean(per_class) * torch.sigmoid(self.alpha)
         return loss
 
@@ -428,5 +428,5 @@ class NEDPrototypeLoss(_ProtoBase):
             table = self._table(flat_x, flat_gt, init_protos, generator).detach()
             p = torch.softmax(_distances(table, flat_x) / self.temperature, dim=0)  # (K, M)
             onehot = _class_major_onehot(flat_gt, self.num_rows)
-            loss = -torch.mean(torch.sum(torch.where(onehot, p, torch.zeros_like(p)), dim=0))
+            loss = -batch_mean(torch.sum(torch.where(onehot, p, torch.zeros_like(p)), dim=0))
         return loss

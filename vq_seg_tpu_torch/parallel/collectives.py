@@ -29,6 +29,7 @@ time to ``stats``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 from collections import Counter
@@ -56,6 +57,36 @@ def data_parallel(group):
         _state.group = before
 
 
+def on_mesh(mesh):
+    """A step decorator: the step runs inside ``data_parallel`` over
+    ``mesh.data_group`` (none without a mesh, ``parallel.make_mesh``), so
+    that every batch-wide reduction of its forwards, losses and metrics is
+    the global batch's and ``backward`` averages the gradients over the
+    group."""
+    group = None if mesh is None else mesh.data_group
+
+    def wrap(step):
+        @functools.wraps(step)
+        def run(*args, **kwargs):
+            with data_parallel(group):
+                return step(*args, **kwargs)
+        return run
+
+    return wrap
+
+
+def backward(loss: torch.Tensor, *models):
+    """``loss.backward()``, then, inside ``data_parallel``, each gradient of
+    ``models`` replaced by its mean over the group: every rank's ``loss``
+    is the global loss (or, in a pair-sharded step, the global batch's
+    loss of this rank's model), so the mean is the single-process
+    gradient."""
+    loss.backward()
+    group = active_group()
+    if group is not None:
+        average_gradients([p for m in models for p in m.parameters()], group)
+
+
 def active_group():
     """The process group of the innermost ``data_parallel``, or None."""
     return getattr(_state, "group", None)
@@ -65,6 +96,13 @@ def group_size() -> int:
     """Ranks in the active group (1 with none)."""
     group = active_group()
     return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank() -> int:
+    """This process's rank in the active group (0 with none): the index of
+    its shard of the global batch."""
+    group = active_group()
+    return 0 if group is None else dist.get_rank(group)
 
 
 def timing(on: bool):
@@ -146,6 +184,27 @@ def batch_gather(t: torch.Tensor) -> torch.Tensor:
     itself with no group."""
     group = active_group()
     return t if group is None else _AllGather.apply(t, group)
+
+
+def batch_roll(t: torch.Tensor) -> torch.Tensor:
+    """``torch.roll(t, -1, 0)`` over the global batch (differentiable): row
+    i takes global row i + 1, the last rank's last row the first rank's
+    first.  Each rank's last row comes from the next rank, by a gather of
+    every rank's first row.  ``torch.roll(t, -1, 0)`` with no group."""
+    if active_group() is None:
+        return torch.roll(t, -1, 0)
+    firsts = batch_gather(t[:1])
+    nxt = (group_rank() + 1) % group_size()
+    return torch.cat([t[1:], firsts[nxt:nxt + 1]])
+
+
+def batch_head(t: torch.Tensor, k: int) -> torch.Tensor:
+    """The global batch's first ``k`` rows, on every rank (differentiable;
+    every rank gathers its first ``k`` rows, each must hold at least
+    ``min(k, its rows)``).  ``t[:k]`` with no group."""
+    if active_group() is None:
+        return t[:k]
+    return batch_gather(t[:k])[:k]
 
 
 def batch_mean(t: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:

@@ -102,13 +102,29 @@ def shard_batch_fn(mesh: Mesh):
     return shard
 
 
+def shard_draw(draw, mesh: Optional[Mesh], rows: int):
+    """``draw`` (a callable ``shape -> tensor``, a random mask drawn from a
+    generator that every rank seeds alike) made to draw for the global
+    batch: for a local shape (k * rows, ...) it draws (k * rows * n_data,
+    ...) and returns this rank's rows of each of the k blocks of the
+    global batch (a batch of ``rows`` per rank concatenated k times, as
+    UniMatch's perturbed pass concatenates two).  So every rank draws what
+    the single process draws, from the same generator state.  ``draw``
+    itself without a mesh."""
+    if mesh is None or mesh.n_data == 1:
+        return draw
+
+    def sharded(shape):
+        k, extra = divmod(shape[0], rows)
+        if extra:
+            raise ValueError(f"a draw of {shape[0]} rows is not a multiple of the shard's {rows}")
+        full = draw((k * rows * mesh.n_data, *shape[1:]))
+        full = full.reshape(k, mesh.n_data, rows, *shape[1:])[:, mesh.data_index]
+        return full.reshape(tuple(shape))
+
+    return sharded
+
+
 def pad_to_devices(batch_size: int, n_devices: int) -> int:
     """Smallest multiple of n_devices >= batch_size."""
     return -(-batch_size // n_devices) * n_devices
-
-
-def refuse_mesh(mesh, mode: str):
-    """The drivers other than ``cps`` take no mesh yet: raise for one."""
-    if mesh is not None:
-        raise NotImplementedError(f"a mesh for --mode {mode} is not ported yet (ROADMAP.md, "
-                                  "queue 1, item 22)")

@@ -23,17 +23,24 @@ all 41 shipped configs train.  ``--trace DIR`` writes a ``torch.profiler``
 trace of the whole run (host and card) into DIR, for TensorBoard or
 ``chrome://tracing``; keep the run short.
 
-The JAX CLI's parallelism flags, for ``--mode cps``, under torchrun (one
-process per card, NCCL; ``--device cpu`` runs gloo processes)::
+The JAX CLI's parallelism flags, for every mode but ``selfsup``, under
+torchrun (one process per card, NCCL; ``--device cpu`` runs gloo
+processes)::
 
     torchrun --nproc_per_node 4 -m vq_seg_tpu_torch.train --data_parallel \\
         --per_device_batch --config_path config/vqreptunet1x1v2.json
 
-``--data_parallel`` shards each global batch over the processes,
-``--per_device_batch`` makes the config's ``batch_size`` per process,
-``--pair_parallel`` puts each CPS model on its own processes (with
-``--data_parallel``: data x 2 processes), ``--zero`` shards Adam's moments
-(ZeRO-1).  ``--spatial`` > 1 is not ported (ROADMAP.md, queue 1, item 21).
+``--data_parallel`` shards each global batch over the processes, and the
+step computes the single-process step on the global batch;
+``--per_device_batch`` makes the config's ``batch_size`` per process.
+``--pair_parallel`` puts each CPS model of ``--mode cps`` on its own
+processes (with ``--data_parallel``: data x 2 processes); under the other
+modes the two processes of a data index hold replicas, as GSPMD replicates
+the parameters of the JAX drivers.  ``--zero`` shards Adam's moments
+(ZeRO-1, with or without ``grad_accum_steps``) under ``--mode cps`` only,
+as in the JAX CLI.  ``--mode selfsup`` takes no mesh, as in the JAX CLI:
+the main process trains it alone and the others exit.  ``--spatial`` > 1
+is not ported (ROADMAP.md, queue 1, item 21).
 """
 from __future__ import annotations
 
@@ -121,10 +128,11 @@ def main(argv=None):
                         help="with --data_parallel: the config's batch_size is per process "
                              "(global batch = batch_size x data ranks)")
     parser.add_argument("--zero", action="store_true",
-                        help="ZeRO-1: shard the Adam moments over each model's data ranks")
+                        help="cps mode: ZeRO-1, the Adam moments sharded over each model's "
+                             "data ranks")
     parser.add_argument("--pair_parallel", action="store_true",
-                        help="cps mode: each CPS model on its own processes; composes with "
-                             "--data_parallel")
+                        help="cps mode: each CPS model on its own processes (the other modes: "
+                             "replicas); composes with --data_parallel")
     parser.add_argument("--spatial", type=int, default=1,
                         help="shard image rows over N processes (not ported yet)")
     opt = parser.parse_args(argv)
@@ -153,14 +161,17 @@ def main(argv=None):
                "salientcps": training.train_salient_cps}[mode]
     from .utils.profiling import trace
 
-    if mesh is not None and mode == "selfsup":
-        from .parallel.mesh import refuse_mesh
-
-        refuse_mesh(mesh, mode)
-    with trace(opt.trace) if opt.trace else contextlib.nullcontext():
-        trainer(cfg, max_steps_per_epoch=opt.max_steps_per_epoch, device=opt.device, **kw)
-    if opt.trace:
-        print(f"profiler trace written to {opt.trace}")
+    idle = False
+    if mesh is not None and mode == "selfsup":  # the JAX CLI passes selfsup no mesh
+        idle, kw = not mesh.is_main, {}
+        if idle:
+            print(f"rank {mesh.rank}: --mode selfsup trains on the main process alone; "
+                  "this one idles")
+    if not idle:
+        with trace(opt.trace) if opt.trace else contextlib.nullcontext():
+            trainer(cfg, max_steps_per_epoch=opt.max_steps_per_epoch, device=opt.device, **kw)
+        if opt.trace:
+            print(f"profiler trace written to {opt.trace}")
     if mesh is not None:
         import torch.distributed as dist
 

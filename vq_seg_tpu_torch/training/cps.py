@@ -55,7 +55,7 @@ from ..metrics.measurement import confusion_matrix, miou
 from ..models.layers import resize_bilinear
 from ..models.modules.vector_quantizer import ema_updates
 from ..models.networks import make_model
-from ..parallel.collectives import all_gather, all_reduce_, average_gradients, data_parallel
+from ..parallel.collectives import all_gather, all_reduce_, backward, on_mesh
 from ..parallel.mesh import Mesh
 from ..parallel.zero import zero_adam
 from ..utils import visualize
@@ -116,10 +116,11 @@ class MultiStepAdam(torch.optim.Adam):
     ``state_dict()`` is Adam's with ``mini_step`` (the micro-steps in the
     running mean) and ``acc_grads`` (the means by parameter index, as
     ``state``), the two fields JAX's ``MultiStepsState`` adds, so that a
-    resume lands mid-accumulation where it stopped."""
+    resume lands mid-accumulation where it stopped.  ``adam`` overrides
+    Adam's settings (ZeRO-1 passes its own, the same)."""
 
-    def __init__(self, params, every_k: int):
-        super().__init__(params, **_ADAM)
+    def __init__(self, params, every_k: int, **adam):
+        super().__init__(params, **{**_ADAM, **adam})
         self.every_k = every_k
         self.mini_step = 0
         self.acc_grads: dict = {}  # parameter -> running mean of its gradients
@@ -173,7 +174,7 @@ def _adam(params, grad_accum_steps: int = 1, zero_group=None) -> torch.optim.Opt
     With ``grad_accum_steps`` > 1, wrapped as ``optax.MultiSteps``; with a
     ``zero_group``, ZeRO-1 over it (``parallel/zero.py``)."""
     if zero_group is not None:
-        return zero_adam(params, zero_group, **_ADAM)
+        return zero_adam(params, zero_group, grad_accum_steps, **_ADAM)
     if grad_accum_steps > 1:
         return MultiStepAdam(params, grad_accum_steps)
     return torch.optim.Adam(params, **_ADAM)
@@ -198,7 +199,7 @@ def broadcast_parameters_(module: nn.Module, mesh: Mesh) -> int:
 def create_cps_state(model_cfg, schedule: Callable[[int], float], *, seed: int = 0,
                      encoder_weights: Optional[str] = None, init_weights: bool = False,
                      grad_accum_steps: int = 1, device="cuda", mesh: Optional[Mesh] = None,
-                     zero: bool = False) -> CPSTrainState:
+                     zero: bool = False, replicas: bool = False) -> CPSTrainState:
     """Two models drawn from two generators seeded from ``seed``, each with
     its Adam (a ``MultiStepAdam`` with ``grad_accum_steps`` > 1).
     ``encoder_weights`` (a tag or a .pth path, ``utils/torch_weights.py``)
@@ -213,13 +214,16 @@ def create_cps_state(model_cfg, schedule: Callable[[int], float], *, seed: int =
     takes the parameters and buffers of its data group's first rank
     (``broadcast_parameters_``; ``state.replicas_differed`` counts the
     tensors that the broadcast changed, 0 when the draws agreed).
-    ``zero`` shards each Adam over the model's data group (ZeRO-1)."""
+    ``replicas``: every rank holds both models whatever the ``model`` axis
+    (the variant steps, whose ``model`` axis holds replicas).  ``zero``
+    shards each Adam (a ``MultiStepAdam`` with accumulation) over the
+    model's data group (ZeRO-1)."""
     device = resolve_device(device)
     pretrained = (resolve_pretrained(encoder_weights, model_cfg["params"].get("encoder_name"))
                   if encoder_weights else None)
     models, opts, differed = [], [], 0
     for i in range(2):
-        if mesh is not None and mesh.pair and i != mesh.model_index:
+        if mesh is not None and mesh.pair and not replicas and i != mesh.model_index:
             models.append(None)
             opts.append(None)
             continue
@@ -301,68 +305,65 @@ def make_cps_train_step(dice_loss, *, num_classes: int, confidence_threshold: fl
     th = confidence_threshold
     if mesh is not None and mesh.pair:
         raise ValueError("a pair-sharded mesh takes make_cps_train_step_pairsharded")
-    group = mesh.data_group if mesh is not None else None
 
     def ce(pred, target):
         return cross_entropy_loss(pred, target, ignore_index=IGNORE, weight=ce_weight)
 
+    @on_mesh(mesh)
     def train_step(state: CPSTrainState, l_img, l_target, ul_img):
         m1, m2 = state.model_1, state.model_2
         modes = (m1.training, m2.training)
         device_type = l_img.device.type
-        with data_parallel(group):
-            try:
-                m1.eval()
-                m2.eval()
-                with torch.no_grad(), torch.autocast(device_type, dtype=torch.bfloat16,
-                                                     enabled=half):
-                    pseudo_1_score = m1(ul_img)[0]
-                    pseudo_2_score = m2(ul_img)[0]
-                m1.train()
-                m2.train()
-                # an ema codebook updates after each train pass: the next pass
-                # of the same model quantizes with it (sup 1, sup 2, unsup 1,
-                # unsup 2)
-                with ema_updates(), torch.autocast(device_type, dtype=torch.bfloat16,
-                                                   enabled=half):
-                    pred_sup_1, c_l1, u_l1, pl_l1 = m1(l_img, l_target, th, train=True)
-                    pred_sup_2, c_l2, u_l2, pl_l2 = m2(l_img, l_target, th, train=True)
-                    pred_ul_1, c_ul1, u_ul1, pl_ul1 = m1(ul_img, pseudo_2_score, th, train=True)
-                    pred_ul_2, c_ul2, u_ul2, pl_ul2 = m2(ul_img, pseudo_1_score, th, train=True)
-            finally:
-                m1.train(modes[0])
-                m2.train(modes[1])
+        try:
+            m1.eval()
+            m2.eval()
+            with torch.no_grad(), torch.autocast(device_type, dtype=torch.bfloat16,
+                                                 enabled=half):
+                pseudo_1_score = m1(ul_img)[0]
+                pseudo_2_score = m2(ul_img)[0]
+            m1.train()
+            m2.train()
+            # an ema codebook updates after each train pass: the next pass
+            # of the same model quantizes with it (sup 1, sup 2, unsup 1,
+            # unsup 2)
+            with ema_updates(), torch.autocast(device_type, dtype=torch.bfloat16,
+                                               enabled=half):
+                pred_sup_1, c_l1, u_l1, pl_l1 = m1(l_img, l_target, th, train=True)
+                pred_sup_2, c_l2, u_l2, pl_l2 = m2(l_img, l_target, th, train=True)
+                pred_ul_1, c_ul1, u_ul1, pl_ul1 = m1(ul_img, pseudo_2_score, th, train=True)
+                pred_ul_2, c_ul2, u_ul2, pl_ul2 = m2(ul_img, pseudo_1_score, th, train=True)
+        finally:
+            m1.train(modes[0])
+            m2.train(modes[1])
 
-            pred_1 = torch.cat([pred_sup_1, pred_ul_1]).float()
-            pred_2 = torch.cat([pred_sup_2, pred_ul_2]).float()
-            with torch.no_grad():
-                filt_1 = confidence_filtered_pseudo(pred_1, torch.argmax(pred_1, dim=1), th,
-                                                    IGNORE)
-                filt_2 = confidence_filtered_pseudo(pred_2, torch.argmax(pred_2, dim=1), th,
-                                                    IGNORE)
-            cps_loss = (0.5 * ce(pred_1, filt_2) + 0.5 * ce(pred_2, filt_1)
-                        + dice_loss(pred_1, filt_2) + dice_loss(pred_2, filt_1))
-            sup_loss_1 = 0.5 * ce(pred_sup_1, l_target) + dice_loss(pred_sup_1, l_target)
-            sup_loss_2 = 0.5 * ce(pred_sup_2, l_target) + dice_loss(pred_sup_2, l_target)
-            commitment = (c_l1 + c_l2 + c_ul1 + c_ul2) * commitment_loss_weight
-            prototype = (pl_l1 + pl_l2 + pl_ul1 + pl_ul2) * prototype_loss_weight
-            loss = sup_loss_1 + sup_loss_2 + cps_loss_weight * cps_loss + commitment + prototype
+        pred_1 = torch.cat([pred_sup_1, pred_ul_1]).float()
+        pred_2 = torch.cat([pred_sup_2, pred_ul_2]).float()
+        with torch.no_grad():
+            filt_1 = confidence_filtered_pseudo(pred_1, torch.argmax(pred_1, dim=1), th,
+                                                IGNORE)
+            filt_2 = confidence_filtered_pseudo(pred_2, torch.argmax(pred_2, dim=1), th,
+                                                IGNORE)
+        cps_loss = (0.5 * ce(pred_1, filt_2) + 0.5 * ce(pred_2, filt_1)
+                    + dice_loss(pred_1, filt_2) + dice_loss(pred_2, filt_1))
+        sup_loss_1 = 0.5 * ce(pred_sup_1, l_target) + dice_loss(pred_sup_1, l_target)
+        sup_loss_2 = 0.5 * ce(pred_sup_2, l_target) + dice_loss(pred_sup_2, l_target)
+        commitment = (c_l1 + c_l2 + c_ul1 + c_ul2) * commitment_loss_weight
+        prototype = (pl_l1 + pl_l2 + pl_ul1 + pl_ul2) * prototype_loss_weight
+        loss = sup_loss_1 + sup_loss_2 + cps_loss_weight * cps_loss + commitment + prototype
 
-            state.opt_1.zero_grad(set_to_none=True)
-            state.opt_2.zero_grad(set_to_none=True)
-            loss.backward()
-            if group is not None:
-                average_gradients(list(m1.parameters()) + list(m2.parameters()), group)
-            _apply_adam(state)
+        state.opt_1.zero_grad(set_to_none=True)
+        state.opt_2.zero_grad(set_to_none=True)
+        backward(loss, m1, m2)
+        _apply_adam(state)
 
-            with torch.no_grad():
-                step_miou, iou_list = miou(confusion_matrix(pred_sup_1, l_target, num_classes))
-                metrics = dict(loss=loss.detach(), cps_loss=cps_loss.detach(),
-                               sup_loss_1=sup_loss_1.detach(), sup_loss_2=sup_loss_2.detach(),
-                               commitment_loss=commitment.detach(),
-                               prototype_loss=prototype.detach(), miou=step_miou,
-                               iou_list=iou_list,
-                               code_usage=(u_l1 + u_l2 + u_ul1 + u_ul2) / 4.0)
+        with torch.no_grad():
+            step_miou, iou_list = miou(confusion_matrix(pred_sup_1, l_target, num_classes))
+            metrics = dict(loss=loss.detach(), cps_loss=cps_loss.detach(),
+                           sup_loss_1=sup_loss_1.detach(), sup_loss_2=sup_loss_2.detach(),
+                           commitment_loss=commitment.detach(),
+                           prototype_loss=prototype.detach(), miou=step_miou,
+                           iou_list=iou_list,
+                           code_usage=(u_l1 + u_l2 + u_ul1 + u_ul2) / 4.0)
         return state, metrics, pred_sup_1.detach(), pred_ul_1.detach()
 
     return train_step
@@ -402,54 +403,53 @@ def make_cps_train_step_pairsharded(dice_loss, mesh: Mesh, *, num_classes: int,
         """The partner's ``t`` (same shape), over the pair group."""
         return all_gather(t, mesh.pair_group).chunk(2)[1 - m]
 
+    @on_mesh(mesh)
     def train_step(state: CPSTrainState, l_img, l_target, ul_img):
         [(_, model, opt)] = state.held()
         was_training = model.training
         device_type = l_img.device.type
-        with data_parallel(mesh.data_group):
-            try:
-                model.eval()
-                with torch.no_grad(), torch.autocast(device_type, dtype=torch.bfloat16,
-                                                     enabled=half):
-                    pseudo_other = swap(model(ul_img)[0])
-                model.train()
-                with ema_updates(), torch.autocast(device_type, dtype=torch.bfloat16,
-                                                   enabled=half):
-                    pred_sup, c_l, u_l, pl_l = model(l_img, l_target, th, train=True)
-                    pred_ul, c_ul, u_ul, pl_ul = model(ul_img, pseudo_other, th, train=True)
-            finally:
-                model.train(was_training)
+        try:
+            model.eval()
+            with torch.no_grad(), torch.autocast(device_type, dtype=torch.bfloat16,
+                                                 enabled=half):
+                pseudo_other = swap(model(ul_img)[0])
+            model.train()
+            with ema_updates(), torch.autocast(device_type, dtype=torch.bfloat16,
+                                               enabled=half):
+                pred_sup, c_l, u_l, pl_l = model(l_img, l_target, th, train=True)
+                pred_ul, c_ul, u_ul, pl_ul = model(ul_img, pseudo_other, th, train=True)
+        finally:
+            model.train(was_training)
 
-            pred = torch.cat([pred_sup, pred_ul]).float()
-            with torch.no_grad():
-                filt_other = swap(confidence_filtered_pseudo(pred, torch.argmax(pred, dim=1),
-                                                             th, IGNORE))
-            cps_mine = 0.5 * ce(pred, filt_other) + dice_loss(pred, filt_other)
-            sup_mine = 0.5 * ce(pred_sup, l_target) + dice_loss(pred_sup, l_target)
-            commit_mine = (c_l + c_ul) * commitment_loss_weight
-            proto_mine = (pl_l + pl_ul) * prototype_loss_weight
-            loss_mine = sup_mine + cps_loss_weight * cps_mine + commit_mine + proto_mine
+        pred = torch.cat([pred_sup, pred_ul]).float()
+        with torch.no_grad():
+            filt_other = swap(confidence_filtered_pseudo(pred, torch.argmax(pred, dim=1),
+                                                         th, IGNORE))
+        cps_mine = 0.5 * ce(pred, filt_other) + dice_loss(pred, filt_other)
+        sup_mine = 0.5 * ce(pred_sup, l_target) + dice_loss(pred_sup, l_target)
+        commit_mine = (c_l + c_ul) * commitment_loss_weight
+        proto_mine = (pl_l + pl_ul) * prototype_loss_weight
+        loss_mine = sup_mine + cps_loss_weight * cps_mine + commit_mine + proto_mine
 
-            opt.zero_grad(set_to_none=True)
-            loss_mine.backward()
-            average_gradients(model.parameters(), mesh.data_group)
-            _apply_adam(state)
+        opt.zero_grad(set_to_none=True)
+        backward(loss_mine, model)
+        _apply_adam(state)
 
-            with torch.no_grad():
-                step_miou, iou_list = miou(confusion_matrix(pred_sup, l_target, num_classes))
-                mine = torch.cat([torch.stack([sup_mine, cps_mine, commit_mine, proto_mine,
-                                               step_miou]).float(), iou_list.float(),
-                                  (u_l + u_ul).float()])
-                pair = all_gather(mine[None], mesh.pair_group)  # row m: model m+1's
-                sup, cps, commit, proto = pair[:, 0], pair[:, 1], pair[:, 2], pair[:, 3]
-                k = iou_list.shape[0]
-                cps_loss = cps[0] + cps[1]
-                metrics = dict(loss=torch.sum(sup + commit + proto) + cps_loss_weight * cps_loss,
-                               cps_loss=cps_loss, sup_loss_1=sup[0], sup_loss_2=sup[1],
-                               commitment_loss=commit[0] + commit[1],
-                               prototype_loss=proto[0] + proto[1], miou=pair[0, 4],
-                               iou_list=pair[0, 5:5 + k],
-                               code_usage=(pair[0, 5 + k:] + pair[1, 5 + k:]) / 4.0)
+        with torch.no_grad():
+            step_miou, iou_list = miou(confusion_matrix(pred_sup, l_target, num_classes))
+            mine = torch.cat([torch.stack([sup_mine, cps_mine, commit_mine, proto_mine,
+                                           step_miou]).float(), iou_list.float(),
+                              (u_l + u_ul).float()])
+            pair = all_gather(mine[None], mesh.pair_group)  # row m: model m+1's
+            sup, cps, commit, proto = pair[:, 0], pair[:, 1], pair[:, 2], pair[:, 3]
+            k = iou_list.shape[0]
+            cps_loss = cps[0] + cps[1]
+            metrics = dict(loss=torch.sum(sup + commit + proto) + cps_loss_weight * cps_loss,
+                           cps_loss=cps_loss, sup_loss_1=sup[0], sup_loss_2=sup[1],
+                           commitment_loss=commit[0] + commit[1],
+                           prototype_loss=proto[0] + proto[1], miou=pair[0, 4],
+                           iou_list=pair[0, 5:5 + k],
+                           code_usage=(pair[0, 5 + k:] + pair[1, 5 + k:]) / 4.0)
         return state, metrics, pred_sup.detach(), pred_ul.detach()
 
     return train_step
@@ -636,8 +636,6 @@ def _check_supported(cfg):
     unported = [
         (int(tc.get("scan_steps", 0) or 0) > 1, "scan_steps > 1", "item 1"),
         (bool(tc.get("fused_step")), "fused_step", "item 1"),
-        (bool(tc.get("zero_opt")) and int(tc.get("grad_accum_steps", 1) or 1) > 1,
-         "zero_opt with grad_accum_steps > 1", "item 24"),
     ]
     for on, name, item in unported:
         if on:
@@ -703,10 +701,11 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, preempt=None, device="
       its shard of every global batch from the same seeded order.  A mesh
       with ``n_model`` 1 runs the data-parallel step, with 2 the
       pair-sharded step; ``cfg.train.zero_opt`` shards each Adam over its
-      model's data group (ZeRO-1).  The init phase runs on the gathered
-      global batch.  Rank (0, 0) alone logs, evaluates model 1 (the others
-      wait for its mIoU), writes the run directory and writes each
-      checkpoint, the single-process contract gathered from the ranks.
+      model's data group (ZeRO-1), with ``grad_accum_steps`` too.  The
+      init phase runs on the gathered global batch.  Rank (0, 0) alone
+      logs, evaluates model 1 (the others wait for its mIoU), writes the
+      run directory and writes each checkpoint, the single-process
+      contract gathered from the ranks.
       A preemption latched on any rank stops every rank after the same
       epoch.  ``history`` gets the same records on every rank.
     """

@@ -31,13 +31,14 @@ from ..losses import cross_entropy_loss, make_loss
 from ..metrics.measurement import confusion_matrix, miou
 from ..models.modules.vector_quantizer import ema_updates
 from ..models.networks import make_model
-from ..parallel.mesh import refuse_mesh
+from ..parallel.collectives import all_gather, backward, on_mesh
+from ..parallel.mesh import Mesh, shard_draw
 from ..utils.ckpoints import save_tree, wait_for_saves
 from ..utils.logger import Logger
 from ..utils.seed import seed_everything
 from ..utils.seg_tools import img_to_label
 from ..utils.torch_weights import load_encoder_weights, pretrained_encoder, resolve_pretrained
-from .cps import IGNORE, _adam, epoch_summary, model_cfg_with_bn, run_dir
+from .cps import IGNORE, _adam, broadcast_parameters_, epoch_summary, model_cfg_with_bn, run_dir
 from .schedules import make_lr_schedule
 
 
@@ -52,10 +53,13 @@ class TrainState:
 
 
 def create_state(model_cfg, schedule: Callable[[int], float], *, seed: int = 0,
-                 encoder_weights: Optional[str] = None, device="cuda") -> TrainState:
+                 encoder_weights: Optional[str] = None, device="cuda",
+                 mesh: Optional[Mesh] = None) -> TrainState:
     """The model drawn from a generator seeded ``seed``, with its Adam.
     ``encoder_weights`` (a tag or a .pth path) loads a pretrained encoder; a
-    tag that resolves to no file warns and leaves the drawn weights."""
+    tag that resolves to no file warns and leaves the drawn weights.  With
+    a ``mesh`` every rank draws the same model and then takes the
+    parameters and buffers of its data group's first rank."""
     device = resolve_device(device)
     model = make_model(model_cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
     if encoder_weights:
@@ -63,6 +67,8 @@ def create_state(model_cfg, schedule: Callable[[int], float], *, seed: int = 0,
         if pretrained is not None:
             load_encoder_weights(pretrained_encoder(model), pretrained)
     model = model.to(device).train()
+    if mesh is not None:
+        broadcast_parameters_(model, mesh)
     return TrainState(model, _adam(model.parameters()), schedule)
 
 
@@ -111,7 +117,8 @@ def forward_args(forward_mode: str, img, target, extra):
 
 
 def make_sup_train_step(dice_loss, *, num_classes: int, ce_weight=None,
-                        forward_mode: str = "gt_extra", half: bool = False):
+                        forward_mode: str = "gt_extra", half: bool = False,
+                        mesh: Optional[Mesh] = None):
     """Build ``train_step(state, img, target, extra, dropout=None) ->
     (state, metrics, pred)``.  ``forward_mode`` is the network's signature:
     "plain" (x), "gt" (x, gt) or "gt_extra" (x, gt, percent-or-th, with
@@ -120,8 +127,15 @@ def make_sup_train_step(dice_loss, *, num_classes: int, ce_weight=None,
     or a tuple ``(out[, commit[, usage[, proto]]])`` whose missing or None
     terms count 0.  ``metrics`` holds device tensors: loss, sup_loss,
     commitment_loss, prototype_loss, miou, iou_list and code_usage (the
-    mean over VQ stages, 0 without VQ)."""
+    mean over VQ stages, 0 without VQ).
 
+    With a ``mesh`` each rank passes its shard of the global batch and the
+    step runs inside ``data_parallel`` over the data group
+    (``parallel.collectives.on_mesh``): losses, BN statistics, code usage and metrics
+    are the global batch's, and the gradients are averaged over the group
+    before the Adam update.  ``dropout`` must then draw the global batch's
+    masks, this rank's rows (``parallel.mesh.shard_draw``)."""
+    @on_mesh(mesh)
     def train_step(state: TrainState, img, target, extra, dropout=None):
         model = state.model
         was_training = model.training
@@ -149,7 +163,7 @@ def make_sup_train_step(dice_loss, *, num_classes: int, ce_weight=None,
         loss = sup + commit + proto
 
         state.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        backward(loss, model)
         for group in state.opt.param_groups:
             group["lr"] = state.schedule(state.step)
         state.opt.step()
@@ -175,7 +189,7 @@ def sup_dropout(cfg, device) -> Callable:
 
 
 def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-          history: Optional[list] = None, mesh=None) -> TrainState:
+          history: Optional[list] = None, mesh: Optional[Mesh] = None) -> TrainState:
     """The supervised driver (train_sup.py flow).  Returns the final state.
 
     * Data: ``{cfg.train.data_dir}/train`` labelled, seed 0;
@@ -189,12 +203,20 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
     * The init phase on the first batch; ``half`` runs the forwards under
       bf16 autocast; ``encoder_weights`` is honoured; a network whose
       forward takes ``dropout`` gets ``sup_dropout``'s masks.
-    * ``history``: a list that gets one dict per epoch.
+    * ``mesh`` (``parallel.make_mesh``; every rank of it calls ``train``):
+      ``cfg.train.batch_size`` is the global batch and each rank decodes
+      its shard of every batch; the parameters are broadcast from the data
+      group's first rank, the init phase runs on the gathered global batch
+      on every rank, the step is ``make_sup_train_step``'s on the mesh and
+      the dropout draws the global batch's masks.  Rank (0, 0) alone
+      prints, logs and writes the run directory and checkpoints.  A
+      ``model`` axis of 2 holds replicas.
+    * ``history``: a list that gets one dict per epoch (on every rank).
     """
-    refuse_mesh(mesh, "sup")
     device = resolve_device(device)
     ds_kind = cfg.train.get("dataset", "base")
     seed_everything()
+    main = mesh is None or mesh.is_main
     num_classes = cfg.num_classes
     batch_size = cfg.train.batch_size
     num_epochs = cfg.train.num_epochs
@@ -210,7 +232,9 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
         dataset = OBIADataset(root, batch_size=batch_size, resize=cfg.resize)
     else:
         dataset = BaseDataset(root, "labelled", batch_size=batch_size, resize=cfg.resize)
-    loader = Loader(dataset, batch_size, shuffle=True, seed=0, device=device, workers=4)
+    shard = (mesh.data_index, mesh.n_data) if mesh is not None else None
+    loader = Loader(dataset, batch_size, shuffle=True, seed=0, device=device, workers=4,
+                    shard=shard)
     steps_per_epoch = len(loader)
     if max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
@@ -222,13 +246,16 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
     forward_mode = sup_forward_mode(cfg.model.name)
     drop = cfg.train.get("unsup_loss_drop_percent", 80.0)
     state = create_state(model_cfg_with_bn(cfg), schedule,
-                         encoder_weights=cfg.model.params.get("encoder_weights"), device=device)
+                         encoder_weights=cfg.model.params.get("encoder_weights"), device=device,
+                         mesh=mesh)
     train_step = make_sup_train_step(dice, num_classes=num_classes,
                                      ce_weight=criterion.get("weight"),
-                                     forward_mode=forward_mode, half=half)
-    dropout = (sup_dropout(cfg, device)
-               if "dropout" in inspect.signature(state.model.forward).parameters else None)
-    save_dir = run_dir(cfg, "sup")
+                                     forward_mode=forward_mode, half=half, mesh=mesh)
+    dropout = None
+    if "dropout" in inspect.signature(state.model.forward).parameters:
+        rows = batch_size // (1 if mesh is None else mesh.n_data)
+        dropout = shard_draw(sup_dropout(cfg, device), mesh, rows)
+    save_dir = run_dir(cfg, "sup") if main else None
     logger = None
     if save_dir is not None and cfg.wandb_logging:
         logger = Logger(cfg, os.path.basename(save_dir), offline_dir=save_dir)
@@ -244,15 +271,20 @@ def train(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
             img = batch["img"]
             target = img_to_label(batch["target"], p2l)
             if not initted:
-                init_phase(state, forward_args(forward_mode, img, target, drop_percent),
-                           half=half)
+                init_img, init_target = img, target
+                if mesh is not None:  # the global batch, on every rank
+                    init_img = all_gather(img, mesh.data_group)
+                    init_target = all_gather(target, mesh.data_group)
+                init_phase(state, forward_args(forward_mode, init_img, init_target,
+                                               drop_percent), half=half)
                 initted = True
             state, metrics, _ = train_step(state, img, target, drop_percent, dropout)
             for k, v in metrics.items():  # on the device, read once per epoch
                 sums[k] = sums.get(k, 0) + v
         batches.close()  # ends the loader's thread of a capped epoch
         avg, line = epoch_summary(None, epoch, sums, steps_per_epoch, time.time() - t0)
-        print(line)
+        if main:
+            print(line)
         if logger is not None:
             logger.log_dict.update(avg)
             logger.logging(epoch=epoch)

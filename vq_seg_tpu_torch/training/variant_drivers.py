@@ -12,6 +12,23 @@ no decoder re-init: ``train.half`` and ``train.init_weights`` are not read,
 although the shipped configs say ``"half": true`` (the JAX drivers of these
 modes open no bf16 context).  They run in f32 under ``device.full_f32``:
 no TF32 in cuDNN or cuBLAS.
+
+Every driver takes ``mesh`` (``parallel.make_mesh``; every rank of it
+calls the driver), as the ``cps`` driver does: ``cfg.train.batch_size`` is
+the global batch and each rank decodes its shard of every batch; the
+parameters are broadcast from each data group's first rank; the init
+phase runs on the gathered global batch on every rank, bitwise the single
+process's; the step is the mode's step on the mesh (``variants.py``), and
+the per-step draws (dropout masks, CutMix boxes, dihedral cases) are drawn
+once for the global batch from generators every rank seeds alike, each
+rank taking its rows (``parallel.mesh.shard_draw``).  Rank (0, 0) alone
+prints, logs, evaluates (the others take its mIoU) and writes the run
+directory and checkpoints.  A ``model`` axis of 2 holds replicas: both
+ranks of a data index hold both models and run the same shard, each
+reducing over its own data group, so their parameters stay bitwise equal.
+``train.zero_opt`` is read by the ``cps`` driver only, as in the JAX
+package.  These drivers have no preemption guard, so no stop request
+crosses the ranks.
 """
 from __future__ import annotations
 
@@ -28,15 +45,17 @@ from ..data.augmentations import make_cutout_mask
 from ..device import full_f32, resolve_device
 from ..losses import make_loss
 from ..models.modules.vector_quantizer import ema_updates
-from ..parallel.mesh import refuse_mesh
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import Mesh, shard_draw
 from ..utils.ckpoints import (fetch_ckpt_tree, load_vqvae_pretrained, save_ckpoints,
                               save_tree, wait_for_saves)
 from ..utils.logger import Logger
 from ..utils.seed import seed_everything
 from ..utils.seg_tools import img_to_label
 from ..utils.train_tools import freeze_encoder_adam, multi_lr_adam
-from .cps import (IGNORE, CPSTrainState, cps_init_phase, create_cps_state, epoch_summary,
-                  evaluate, make_test_loader, model_cfg_with_bn, run_dir, semi_loaders)
+from .cps import (IGNORE, CPSTrainState, _from_main, broadcast_parameters_, cps_init_phase,
+                  create_cps_state, epoch_summary, evaluate, make_test_loader, model_cfg_with_bn,
+                  run_dir, semi_loaders)
 from .schedules import make_lr_schedule
 from .supervised import TrainState, create_state, init_phase
 from .variants import (make_angularv3_cps_train_step, make_easyhard_cps_train_step,
@@ -51,14 +70,17 @@ class _Run:
     ``log_txt`` and ``ckpoints/``), its logger (JSONL or wandb with
     ``wandb_logging``), loaders, test loader and the per-epoch bookkeeping
     shared by the dual-model drivers.  ``evaluate=False`` runs no test
-    split whatever ``test_every`` says; ``loaders`` replaces the labelled
-    and unlabelled loaders of ``semi_loaders``."""
+    split whatever ``test_every`` says; ``loaders`` (a callable ``shard ->
+    (labelled, unlabelled)``) replaces ``semi_loaders``.  On a ``mesh`` the
+    loaders yield this rank's shard, and only the main rank has a run
+    directory, a logger and a test loader."""
 
     def __init__(self, cfg, tag: str, device, max_steps_per_epoch: Optional[int],
-                 evaluate: bool = True, loaders=None):
-        self.cfg, self.tag, self.device = cfg, tag, device
+                 evaluate: bool = True, loaders=None, mesh: Optional[Mesh] = None):
+        self.cfg, self.tag, self.device, self.mesh = cfg, tag, device, mesh
+        self.main = mesh is None or mesh.is_main
         seed_everything()
-        save_dir = run_dir(cfg, tag)
+        save_dir = run_dir(cfg, tag) if self.main else None
         self.ckpoints_dir = self.log_txt = self.logger = None
         if save_dir is not None:
             self.ckpoints_dir = os.path.join(save_dir, "ckpoints")
@@ -66,19 +88,25 @@ class _Run:
             open(self.log_txt, "w").close()
             if cfg.wandb_logging:
                 self.logger = Logger(cfg, os.path.basename(save_dir), offline_dir=save_dir)
-        self.sup_loader, self.unsup_loader = loaders or semi_loaders(cfg, device)
+        shard = (mesh.data_index, mesh.n_data) if mesh is not None else None
+        make_loaders = loaders or (lambda shard: semi_loaders(cfg, device, shard))
+        self.sup_loader, self.unsup_loader = make_loaders(shard)
+        # rows of each batch on this rank: the draws' shard
+        self.rows = cfg.train.batch_size // (1 if mesh is None else mesh.n_data)
         self.steps = len(self.unsup_loader)
         if max_steps_per_epoch:
             self.steps = min(self.steps, max_steps_per_epoch)
         # the LR schedule spans the uncapped epoch
         self.schedule = make_lr_schedule(cfg.train, len(self.unsup_loader))
-        self.tests = make_test_loader(cfg, device) if evaluate else None
+        self.evaluates = evaluate and bool(cfg.get("test") and cfg.train.get("test_every"))
+        self.tests = make_test_loader(cfg, device) if evaluate and self.main else None
 
     def train(self, state, step: Callable, init: Callable, history: Optional[list],
               epoch_args: Callable[[int], dict] = lambda e: {},
               batch_args: Callable[[dict, dict], dict] = lambda sup, unsup: {}):
         """The epochs: ``zip(cycle(sup), unsup)``, ``init(state, l_img,
-        l_target)`` before the first step, ``step(state, l_img, l_target,
+        l_target)`` before the first step (on the gathered global batch on a
+        mesh), ``step(state, l_img, l_target,
         ul_img, **epoch_args(epoch), **batch_args(sup_batch,
         unsup_batch))``, then the epoch's line, evaluation of
         model 1 every ``test_every`` epochs and ``{e}ep.ckpt`` every 10
@@ -99,7 +127,11 @@ class _Run:
                 l_target = img_to_label(sup_batch["target"], p2l)
                 ul_img = unsup_batch["img"]
                 if not initted:
-                    init(state, l_img, l_target)
+                    if self.mesh is None:
+                        init(state, l_img, l_target)
+                    else:  # replicated, on the global batch
+                        init(state, all_gather(l_img, self.mesh.data_group),
+                             all_gather(l_target, self.mesh.data_group))
                     initted = True
                 state, metrics = step(state, l_img, l_target, ul_img, **extra,
                                       **batch_args(sup_batch, unsup_batch))
@@ -116,7 +148,8 @@ class _Run:
                    history: Optional[list]):
         cfg = self.cfg
         avg, line = epoch_summary(self.tag, epoch, sums, self.steps, time.time() - t0)
-        print(line)
+        if self.main:
+            print(line)
         record = {"epoch": epoch, "seconds": time.time() - t0, **extra, "step": state.step,
                   "test_miou": None, "ckpt_files": [], **avg}
         if self.log_txt is not None:
@@ -126,11 +159,14 @@ class _Run:
             self.logger.log_dict.update(avg)
             self.logger.logging(epoch=epoch)
         single = isinstance(state, TrainState)
-        if self.tests is not None and epoch % cfg.train.test_every == 0:
-            record["test_miou"] = evaluate(state.model if single else state.model_1, self.tests,
-                                           cfg.pixel_to_label, cfg.num_classes,
-                                           device=self.device)
-            print(f"test miou : {record['test_miou']}")
+        if self.evaluates and epoch % cfg.train.test_every == 0:
+            test_miou = None
+            if self.tests is not None:  # the main rank's
+                test_miou = evaluate(state.model if single else state.model_1, self.tests,
+                                     cfg.pixel_to_label, cfg.num_classes, device=self.device)
+            record["test_miou"] = _from_main(self.mesh, test_miou)
+            if self.main:
+                print(f"test miou : {record['test_miou']}")
         if self.ckpoints_dir is not None and single:
             save_tree({"model_1": state.model, "epoch": epoch, "optimizer_1": state.opt},
                       os.path.join(self.ckpoints_dir, "last.ckpt"))
@@ -150,7 +186,7 @@ class _Run:
 
 @full_f32()
 def train_rept_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                   history: Optional[list] = None, mesh=None):
+                   history: Optional[list] = None, mesh: Optional[Mesh] = None):
     """The ``reptcps`` driver (reference
     train_with_test_pt_pseudo_entropy_reg.py:124-210).  Returns the final
     ``CPSTrainState``.
@@ -172,19 +208,16 @@ def train_rept_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
     * ``history``: a list that gets one dict per epoch (averages, seconds,
       test mIoU, checkpoint files).
     """
-    refuse_mesh(mesh, "reptcps")
     device = resolve_device(device)
-    run = _Run(cfg, "reptcps", device, max_steps_per_epoch)
+    run = _Run(cfg, "reptcps", device, max_steps_per_epoch, mesh=mesh)
     criterion = make_loss(cfg.train.criterion.name, cfg.num_classes, ignore_index=IGNORE,
                           weight=cfg.train.criterion.get("weight"))
-    state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
-                             encoder_weights=cfg.model.params.get("encoder_weights"),
-                             device=device)
+    state = dual_state(cfg, run.schedule, device, mesh)
     step = make_rept_cps_train_step(
         criterion, num_classes=cfg.num_classes,
         cps_loss_weight=cfg.train.get("cps_loss_weight", 1.0),
         commitment_loss_weight=cfg.train.get("total_commitment_loss_weight", 1.0),
-        prototype_loss_weight=cfg.train.get("total_prototype_loss_weight", 0.01))
+        prototype_loss_weight=cfg.train.get("total_prototype_loss_weight", 0.01), mesh=mesh)
     num_epochs = cfg.train.num_epochs
     drop_base = float(cfg.train.get("unsup_loss_drop_percent", 20))
 
@@ -197,6 +230,18 @@ def train_rept_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
     return run.train(state, step, init, history, drop_percent)
 
 
+def dual_state(cfg, schedule, device, mesh: Optional[Mesh] = None,
+               encoder_weights: bool = True) -> CPSTrainState:
+    """The dual-model drivers' state: ``create_cps_state`` of the config's
+    model (``bn_eps``/``bn_momentum`` passed), ``encoder_weights`` honoured
+    unless told not to; on a ``mesh`` every rank holds both models (the
+    ``model`` axis holds replicas) and takes its data group's first rank's
+    parameters."""
+    return create_cps_state(
+        model_cfg_with_bn(cfg), schedule, device=device, mesh=mesh, replicas=True,
+        encoder_weights=cfg.model.params.get("encoder_weights") if encoder_weights else None)
+
+
 def plain_init_phase(state: CPSTrainState, l_img: torch.Tensor, l_target: torch.Tensor):
     """The plain-forward networks' init phase on the first labeled batch:
     ``supervised.init_phase`` of model 1 from seed 0 and of model 2 from
@@ -206,11 +251,11 @@ def plain_init_phase(state: CPSTrainState, l_img: torch.Tensor, l_target: torch.
     return state
 
 
-def plain_step(cfg, state: CPSTrainState, mode: str) -> Callable:
+def plain_step(cfg, state: CPSTrainState, mode: str, mesh: Optional[Mesh] = None) -> Callable:
     """The step of ``mode`` (``plaincps`` or ``objcps``) as its driver
-    builds it from ``cfg``, with ``state``'s optimizers set as the driver
-    sets them: for ``plaincps`` Adam with the encoder at ``lr /
-    decoder_lr_times``, for ``objcps`` the plain Adam of
+    builds it from ``cfg`` (on ``mesh`` where given), with ``state``'s
+    optimizers set as the driver sets them: for ``plaincps`` Adam with the
+    encoder at ``lr / decoder_lr_times``, for ``objcps`` the plain Adam of
     ``create_cps_state``."""
     tc = cfg.train
     if mode == "plaincps":
@@ -221,7 +266,7 @@ def plain_step(cfg, state: CPSTrainState, mode: str) -> Callable:
             num_classes=cfg.num_classes, cps_loss_weight=tc.get("cps_loss_weight", 1.0),
             ce_weight=tc.criterion.get("weight"),
             usage_loss_weight=tc.get("code_usage_loss_weight", 0.0),
-            depth=cfg.model.params.get("depth", 5))
+            depth=cfg.model.params.get("depth", 5), mesh=mesh)
     if mode != "objcps":
         raise ValueError(f"plain_step: mode {mode!r} is not plaincps or objcps")
     criterion = make_loss(tc.criterion.name, cfg.num_classes, ignore_index=IGNORE,
@@ -230,12 +275,12 @@ def plain_step(cfg, state: CPSTrainState, mode: str) -> Callable:
         criterion, make_loss(tc.criterion.name, 1), num_classes=cfg.num_classes,
         batch_size=tc.batch_size, cps_loss_weight=tc.get("cps_loss_weight", 1.0),
         commitment_loss_weight=tc.get("total_commitment_loss_weight", 1.0),
-        obj_loss_weight=tc.get("obj_loss_weight", 1.0))
+        obj_loss_weight=tc.get("obj_loss_weight", 1.0), mesh=mesh)
 
 
 @full_f32()
 def train_plain_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                    history: Optional[list] = None, mesh=None):
+                    history: Optional[list] = None, mesh: Optional[Mesh] = None):
     """The ``plaincps`` driver (reference deprecated/train_CPS.py), for any
     plain-forward network (``vqunet_v2`` and the attention networks).
     Returns the final ``CPSTrainState``.
@@ -255,19 +300,16 @@ def train_plain_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda
       not read.
     * ``history``: a list that gets one dict per epoch.
     """
-    refuse_mesh(mesh, "plaincps")
     device = resolve_device(device)
-    run = _Run(cfg, "plaincps", device, max_steps_per_epoch)
-    state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
-                             encoder_weights=cfg.model.params.get("encoder_weights"),
-                             device=device)
-    step = plain_step(cfg, state, "plaincps")
+    run = _Run(cfg, "plaincps", device, max_steps_per_epoch, mesh=mesh)
+    state = dual_state(cfg, run.schedule, device, mesh)
+    step = plain_step(cfg, state, "plaincps", mesh)
     return run.train(state, step, plain_init_phase, history)
 
 
 @full_f32()
 def train_obj_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                  history: Optional[list] = None, mesh=None):
+                  history: Optional[list] = None, mesh: Optional[Mesh] = None):
     """The ``objcps`` driver (reference
     deprecated/train_with_test_object_loss.py): plain CPS with the
     configured criterion plus the binary object loss on the non-background
@@ -276,13 +318,10 @@ def train_obj_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
     ``decoder_lr_times``); otherwise as ``train_plain_cps``, with the run
     directory ``{project_name}_objcps_{n}``.  Returns the final
     ``CPSTrainState``."""
-    refuse_mesh(mesh, "objcps")
     device = resolve_device(device)
-    run = _Run(cfg, "objcps", device, max_steps_per_epoch)
-    state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
-                             encoder_weights=cfg.model.params.get("encoder_weights"),
-                             device=device)
-    step = plain_step(cfg, state, "objcps")
+    run = _Run(cfg, "objcps", device, max_steps_per_epoch, mesh=mesh)
+    state = dual_state(cfg, run.schedule, device, mesh)
+    step = plain_step(cfg, state, "objcps", mesh)
     return run.train(state, step, plain_init_phase, history)
 
 
@@ -309,9 +348,10 @@ def vqpt_init_phase(state: CPSTrainState, l_img: torch.Tensor, l_target: torch.T
     return state
 
 
-def vqpt_step(cfg, mode: str = "vqpt") -> Callable:
+def vqpt_step(cfg, mode: str = "vqpt", mesh: Optional[Mesh] = None) -> Callable:
     """The step of ``mode`` (``vqpt``, ``easyhard``, ``angularv3`` or
-    ``supconcps``) as its driver builds it from ``cfg``: the configured
+    ``supconcps``) as its driver builds it from ``cfg`` (on ``mesh`` where
+    given): the configured
     criterion (ignore index 255, its weight), ``cps_loss_weight`` and
     ``total_commitment_loss_weight``, and the mode's own weight: the
     prototype weight ``total_prototype_loss_weight`` (for ``vqpt`` falling
@@ -323,7 +363,7 @@ def vqpt_step(cfg, mode: str = "vqpt") -> Callable:
     criterion = make_loss(tc.criterion.name, cfg.num_classes, ignore_index=IGNORE,
                           weight=tc.criterion.get("weight"))
     kw = dict(num_classes=cfg.num_classes, cps_loss_weight=tc.get("cps_loss_weight", 1.0),
-              commitment_loss_weight=tc.get("total_commitment_loss_weight", 1.0))
+              commitment_loss_weight=tc.get("total_commitment_loss_weight", 1.0), mesh=mesh)
     proto = tc.get("total_prototype_loss_weight", 0.01)
     if mode == "vqpt":
         return make_vqpt_cps_train_step(
@@ -342,7 +382,7 @@ def vqpt_step(cfg, mode: str = "vqpt") -> Callable:
 
 @full_f32()
 def train_vqpt_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                   history: Optional[list] = None, mesh=None):
+                   history: Optional[list] = None, mesh: Optional[Mesh] = None):
     """The ``vqpt`` driver (reference deprecated/train_vq_pt_unet.py and
     train_only_decoder.py), for the ``(x, gt)`` networks.  Returns the final
     ``CPSTrainState``.
@@ -363,13 +403,10 @@ def train_vqpt_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
       read, although the shipped configs say ``"half": true``.
     * ``history``: a list that gets one dict per epoch.
     """
-    refuse_mesh(mesh, "vqpt")
     device = resolve_device(device)
-    run = _Run(cfg, "vqpt", device, max_steps_per_epoch)
+    run = _Run(cfg, "vqpt", device, max_steps_per_epoch, mesh=mesh)
     pretrained = cfg.train.get("pretrained")
-    state = create_cps_state(
-        model_cfg_with_bn(cfg), run.schedule, device=device,
-        encoder_weights=None if pretrained else cfg.model.params.get("encoder_weights"))
+    state = dual_state(cfg, run.schedule, device, mesh, encoder_weights=not pretrained)
     if pretrained:
         for model in (state.model_1, state.model_2):
             load_vqvae_pretrained(model, pretrained["encoder"], pretrained["codebook"])
@@ -379,7 +416,7 @@ def train_vqpt_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
     def init(state, l_img, l_target):
         vqpt_init_phase(state, l_img, l_target, init_codebook=not pretrained)
 
-    return run.train(state, vqpt_step(cfg), init, history)
+    return run.train(state, vqpt_step(cfg, mesh=mesh), init, history)
 
 
 def easyhard_draws(cfg, device) -> Callable:
@@ -404,7 +441,7 @@ def easyhard_draws(cfg, device) -> Callable:
 
 @full_f32()
 def train_easyhard_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                       history: Optional[list] = None, mesh=None):
+                       history: Optional[list] = None, mesh: Optional[Mesh] = None):
     """The ``easyhard`` driver (reference
     deprecated/train_vqpt_easyhard_aug.py), for the ``(x, gt)`` networks.
     Returns the final ``CPSTrainState``.
@@ -420,13 +457,10 @@ def train_easyhard_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="c
     * f32 throughout under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
-    refuse_mesh(mesh, "easyhard")
     device = resolve_device(device)
-    run = _Run(cfg, "easyhard", device, max_steps_per_epoch, evaluate=False)
-    state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
-                             encoder_weights=cfg.model.params.get("encoder_weights"),
-                             device=device)
-    step = vqpt_step(cfg, "easyhard")
+    run = _Run(cfg, "easyhard", device, max_steps_per_epoch, evaluate=False, mesh=mesh)
+    state = dual_state(cfg, run.schedule, device, mesh)
+    step = vqpt_step(cfg, "easyhard", mesh)
     draw = easyhard_draws(cfg, device)
 
     def easyhard_step(state, l_img, l_target, ul_img):
@@ -444,7 +478,7 @@ def angularv3_threshold(epoch: int, num_epochs: int) -> float:
 
 @full_f32()
 def train_angularv3_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                        history: Optional[list] = None, mesh=None):
+                        history: Optional[list] = None, mesh: Optional[Mesh] = None):
     """The ``angularv3`` driver (reference deprecated/train_angularv3.py)
     for ``vqreptunetangularv3``.  Returns the final ``CPSTrainState``.
 
@@ -461,13 +495,10 @@ def train_angularv3_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="
     * f32 under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
-    refuse_mesh(mesh, "angularv3")
     device = resolve_device(device)
-    run = _Run(cfg, "angularv3", device, max_steps_per_epoch)
-    state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
-                             encoder_weights=cfg.model.params.get("encoder_weights"),
-                             device=device)
-    step = vqpt_step(cfg, "angularv3")
+    run = _Run(cfg, "angularv3", device, max_steps_per_epoch, mesh=mesh)
+    state = dual_state(cfg, run.schedule, device, mesh)
+    step = vqpt_step(cfg, "angularv3", mesh)
     num_epochs = cfg.train.num_epochs
 
     def init(state, l_img, l_target):
@@ -479,7 +510,7 @@ def train_angularv3_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="
 
 @full_f32()
 def train_supcon_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                     history: Optional[list] = None, mesh=None):
+                     history: Optional[list] = None, mesh: Optional[Mesh] = None):
     """The ``supconcps`` driver (reference deprecated/train_supcon_unet.py)
     for ``supconvqunet``.  Returns the final ``CPSTrainState``.
 
@@ -494,13 +525,10 @@ def train_supcon_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cud
     * f32 under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
-    refuse_mesh(mesh, "supconcps")
     device = resolve_device(device)
-    run = _Run(cfg, "supconcps", device, max_steps_per_epoch)
-    state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
-                             encoder_weights=cfg.model.params.get("encoder_weights"),
-                             device=device)
-    step = vqpt_step(cfg, "supconcps")
+    run = _Run(cfg, "supconcps", device, max_steps_per_epoch, mesh=mesh)
+    state = dual_state(cfg, run.schedule, device, mesh)
+    step = vqpt_step(cfg, "supconcps", mesh)
 
     def init(state, l_img, l_target):
         vqpt_init_phase(state, l_img, l_target, extra=("label",), init_protos=False)
@@ -539,7 +567,7 @@ def semiweed_state(cfg, schedule, device) -> TrainState:
 
 @full_f32()
 def train_semiweed(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                   history: Optional[list] = None, mesh=None):
+                   history: Optional[list] = None, mesh: Optional[Mesh] = None):
     """The ``semiweed`` driver (reference deprecated/semiweednet_train.py)
     for ``semiweednet``: one model.  Returns the final ``TrainState``.
 
@@ -554,20 +582,24 @@ def train_semiweed(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
     * f32 under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
-    refuse_mesh(mesh, "semiweed")
     device = resolve_device(device)
-    run = _Run(cfg, "semiweed", device, max_steps_per_epoch)
+    run = _Run(cfg, "semiweed", device, max_steps_per_epoch, mesh=mesh)
     tc = cfg.train
     criterion = make_loss(tc.criterion.name, cfg.num_classes, ignore_index=IGNORE,
                           weight=tc.criterion.get("weight"))
     state = semiweed_state(cfg, run.schedule, device)
+    if mesh is not None:
+        broadcast_parameters_(state.model, mesh)
     step = make_semiweed_train_step(
         criterion, num_classes=cfg.num_classes, overlap_size=tc.get("overlap_size", 240),
-        ce_loss_weight=tc.get("ce_loss_weight", 1.0), dc_loss_weight=tc.get("dc_loss_weight", 1.0))
+        ce_loss_weight=tc.get("ce_loss_weight", 1.0), dc_loss_weight=tc.get("dc_loss_weight", 1.0),
+        mesh=mesh)
     draw = semiweed_draws(cfg, device)
 
     def semiweed_step(state, l_img, l_target, ul_img):
-        return step(state, l_img, l_target, ul_img, *draw())
+        case1, case2, dropout = draw()
+        return step(state, l_img, l_target, ul_img, case1, case2,
+                    tuple(shard_draw(d, mesh, run.rows) for d in dropout))
 
     return run.train(state, semiweed_step, lambda *_: None, history)
 
@@ -612,7 +644,7 @@ def unimatch_state(cfg, schedule, device) -> TrainState:
 
 @full_f32()
 def train_unimatch(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                   history: Optional[list] = None, mesh=None):
+                   history: Optional[list] = None, mesh: Optional[Mesh] = None):
     """The ``unimatch`` driver (reference deprecated/train_UniMatch.py) for
     the ``unimatch`` network: one model.  Returns the final ``TrainState``.
 
@@ -626,34 +658,39 @@ def train_unimatch(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda"
     * f32 under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
-    refuse_mesh(mesh, "unimatch")
     device = resolve_device(device)
-    run = _Run(cfg, "unimatch", device, max_steps_per_epoch)
+    run = _Run(cfg, "unimatch", device, max_steps_per_epoch, mesh=mesh)
     state = unimatch_state(cfg, run.schedule, device)
+    if mesh is not None:
+        broadcast_parameters_(state.model, mesh)
     step = make_unimatch_train_step(
         num_classes=cfg.num_classes,
         confidence_threshold=cfg.train.get("confidence_threshold", 0.95),
-        ce_weight=cfg.train.criterion.get("weight"))
+        ce_weight=cfg.train.criterion.get("weight"), mesh=mesh)
     draw = unimatch_draws(cfg, device)
 
     def unimatch_step(state, l_img, l_target, ul_img):
-        return step(state, l_img, l_target, ul_img, *draw(ul_img.shape[-2:]))
+        mask_1, mask_2, dropout, fp_dropout = draw(ul_img.shape[-2:])
+        return step(state, l_img, l_target, ul_img, mask_1, mask_2,
+                    shard_draw(dropout, mesh, run.rows), shard_draw(fp_dropout, mesh, run.rows))
 
     return run.train(state, unimatch_step, lambda *_: None, history)
 
 
-def salient_loaders(cfg, device):
+def salient_loaders(cfg, device, shard: Optional[tuple] = None):
     """The labelled and unlabelled ``SalientDataset`` loaders over
     ``{data_dir}/train`` with the maps of ``train.salient_dir``, seeds 0
-    and 1, not padded to a batch multiple (the JAX driver's)."""
+    and 1, not padded to a batch multiple (the JAX driver's); ``shard``
+    as ``semi_loaders``' (a last, partial batch must then divide over the
+    data ranks: the loader raises where it does not)."""
     root = os.path.join(cfg.train.data_dir, "train")
     bs = cfg.train.batch_size
     return tuple(Loader(SalientDataset(root, cfg.train.salient_dir, split, resize=cfg.resize),
-                        bs, shuffle=True, seed=seed, device=device, workers=4)
+                        bs, shuffle=True, seed=seed, device=device, workers=4, shard=shard)
                  for seed, split in enumerate(("labelled", "unlabelled")))
 
 
-def salient_step(cfg) -> Callable:
+def salient_step(cfg, mesh: Optional[Mesh] = None) -> Callable:
     """The ``salientcps`` step as its driver builds it from ``cfg``:
     ``cps_loss_weight``, ``total_commitment_loss_weight``,
     ``auxiliary_loss_weight`` (each default 1) and the criterion's
@@ -663,12 +700,12 @@ def salient_step(cfg) -> Callable:
         num_classes=cfg.num_classes, cps_loss_weight=tc.get("cps_loss_weight", 1.0),
         commitment_loss_weight=tc.get("total_commitment_loss_weight", 1.0),
         auxiliary_loss_weight=tc.get("auxiliary_loss_weight", 1.0),
-        ce_weight=tc.criterion.get("weight"))
+        ce_weight=tc.criterion.get("weight"), mesh=mesh)
 
 
 @full_f32()
 def train_salient_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cuda",
-                      history: Optional[list] = None, mesh=None):
+                      history: Optional[list] = None, mesh: Optional[Mesh] = None):
     """The ``salientcps`` driver (reference deprecated/train_salient_loss.py)
     for two ``VQUnetwithSalientloss`` models.  Returns the final
     ``CPSTrainState``.
@@ -685,18 +722,15 @@ def train_salient_cps(cfg, max_steps_per_epoch: Optional[int] = None, device="cu
     * f32 under ``device.full_f32``; ``half`` is not read.
     * ``history``: a list that gets one dict per epoch.
     """
-    refuse_mesh(mesh, "salientcps")
     device = resolve_device(device)
     run = _Run(cfg, "salientcps", device, max_steps_per_epoch, evaluate=False,
-               loaders=salient_loaders(cfg, device))
-    state = create_cps_state(model_cfg_with_bn(cfg), run.schedule,
-                             encoder_weights=cfg.model.params.get("encoder_weights"),
-                             device=device)
+               loaders=lambda shard: salient_loaders(cfg, device, shard), mesh=mesh)
+    state = dual_state(cfg, run.schedule, device, mesh)
 
     def maps(sup_batch, unsup_batch):
         return {"l_sal": sup_batch["salient_map"], "ul_sal": unsup_batch["salient_map"]}
 
-    step = salient_step(cfg)
+    step = salient_step(cfg, mesh)
 
     def salient(state, l_img, l_target, ul_img, l_sal, ul_sal):
         return step(state, l_img, l_target, l_sal, ul_img, ul_sal)

@@ -55,8 +55,24 @@ and its feature-perturbed view, with the boxes and dropout masks given to
 it.  The ``salientcps`` step is plain CPS of two ``VQUnetwithSalientloss``
 networks plus their saliency decoders' MSE against the given maps.  All
 run in f32 under ``device.full_f32``.
+
+Every builder takes ``mesh`` (``parallel.make_mesh``): each rank then
+passes its shard of the global batch, as ``parallel.shard_batch_fn`` lays
+it out, and the step computes what the single-process step computes on the
+global batch, as GSPMD gives the JAX steps: every loss term, percentile and
+metric is the global batch's (``parallel.collectives.on_mesh``), CutMix
+mixes across the shards' boundaries, the contrastive loss takes the global
+batch's first two items, the diagonal-cosine loss every rank's
+projections, and the gradients are averaged over the data group
+(``collectives.backward``).  Masks a step is given (dropout, CutMix boxes)
+must be the global batch's draws, this rank's rows
+(``parallel.mesh.shard_draw``).  On a mesh whose ``model`` axis is 2 the
+two ranks of a data index each run the step on the same shard over their
+own data group: replicas.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -66,6 +82,8 @@ from ..losses import cross_entropy_loss, dc_loss
 from ..metrics.measurement import confusion_matrix, miou
 from ..models.layers import resize_nearest_exact
 from ..models.modules.prototype import percentile
+from ..parallel.collectives import backward, batch_mean, on_mesh
+from ..parallel.mesh import Mesh
 from ..utils.train_tools import set_lr
 from .cps import CPSTrainState
 from .supervised import TrainState
@@ -92,7 +110,7 @@ def _update(state: CPSTrainState, loss, pred_sup_1, l_target, num_classes: int, 
     IoUs of ``pred_sup_1``, all device tensors."""
     state.opt_1.zero_grad(set_to_none=True)
     state.opt_2.zero_grad(set_to_none=True)
-    loss.backward()
+    backward(loss, state.model_1, state.model_2)
     lr = state.schedule(state.step)
     for opt in (state.opt_1, state.opt_2):
         set_lr(opt, lr)
@@ -106,7 +124,7 @@ def _update(state: CPSTrainState, loss, pred_sup_1, l_target, num_classes: int, 
 
 def make_rept_cps_train_step(criterion, *, num_classes: int, cps_loss_weight: float = 1.0,
                              commitment_loss_weight: float = 1.0,
-                             prototype_loss_weight: float = 0.01):
+                             prototype_loss_weight: float = 0.01, mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, ul_img, drop_percent) ->
     (state, metrics)``.  Images are (N, 3, H, W) floats, labels (N, H, W)
     integers, ``drop_percent`` a float; ``state`` (a ``CPSTrainState``) is
@@ -115,6 +133,7 @@ def make_rept_cps_train_step(criterion, *, num_classes: int, cps_loss_weight: fl
     miou and iou_list."""
 
     @full_f32()
+    @on_mesh(mesh)
     def train_step(state: CPSTrainState, l_img, l_target, ul_img, drop_percent):
         m1, m2 = state.model_1, state.model_2
         modes = (m1.training, m2.training)
@@ -195,7 +214,7 @@ def _vq_terms(outs, commitment_loss_weight: float, prototype_loss_weight: float)
 
 def make_vqpt_cps_train_step(criterion, *, num_classes: int, cps_loss_weight: float = 1.0,
                              commitment_loss_weight: float = 1.0,
-                             prototype_loss_weight: float = 0.01):
+                             prototype_loss_weight: float = 0.01, mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, ul_img) -> (state,
     metrics)``: CPS for the ``(x, gt)`` networks (reference
     deprecated/train_vq_pt_unet.py).
@@ -209,6 +228,7 @@ def make_vqpt_cps_train_step(criterion, *, num_classes: int, cps_loss_weight: fl
     and iou_list."""
 
     @full_f32()
+    @on_mesh(mesh)
     def train_step(state: CPSTrainState, l_img, l_target, ul_img):
         _, outs = _gt_passes(state, l_img, l_target, ul_img, ul_img)
         pred_sup_1, pred_sup_2, pred_ul_1, pred_ul_2 = (o[0] for o in outs)
@@ -243,7 +263,8 @@ def dihedral(x: torch.Tensor, case: int) -> torch.Tensor:
 
 def make_easyhard_cps_train_step(criterion, *, num_classes: int, cps_loss_weight: float = 1.0,
                                  commitment_loss_weight: float = 1.0,
-                                 prototype_loss_weight: float = 0.01):
+                                 prototype_loss_weight: float = 0.01,
+                                 mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, ul_img, mask, case) ->
     (state, metrics)``: easy-hard CPS (reference
     deprecated/train_vqpt_easyhard_aug.py).
@@ -260,6 +281,7 @@ def make_easyhard_cps_train_step(criterion, *, num_classes: int, cps_loss_weight
     prototype_loss, code_usage, miou (of ``pred_sup_1``) and iou_list."""
 
     @full_f32()
+    @on_mesh(mesh)
     def train_step(state: CPSTrainState, l_img, l_target, ul_img, mask, case: int):
         (pl_1, pl_2), outs = _gt_passes(state, l_img, l_target, dihedral(ul_img, case),
                                         cutmix(ul_img, mask),
@@ -306,7 +328,8 @@ def _plain_passes(state: CPSTrainState, l_img, ul_img, split):
 
 
 def make_plain_cps_train_step(*, num_classes: int, cps_loss_weight: float = 1.0, ce_weight=None,
-                              usage_loss_weight: float = 0.0, depth: int = 5):
+                              usage_loss_weight: float = 0.0, depth: int = 5,
+                              mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, ul_img) -> (state,
     metrics)``: plain CPS (reference deprecated/train_CPS.py).
 
@@ -330,6 +353,7 @@ def make_plain_cps_train_step(*, num_classes: int, cps_loss_weight: float = 1.0,
         return out, out.new_zeros((0,))
 
     @full_f32()
+    @on_mesh(mesh)
     def train_step(state: CPSTrainState, l_img, l_target, ul_img):
         (pred_sup_1, pred_sup_2), (pred_1, pred_2), (pseudo_1, pseudo_2), usages = \
             _plain_passes(state, l_img, ul_img, split)
@@ -351,7 +375,7 @@ def make_plain_cps_train_step(*, num_classes: int, cps_loss_weight: float = 1.0,
 def make_objloss_cps_train_step(criterion, object_criterion, *, num_classes: int,
                                 batch_size: int, cps_loss_weight: float = 1.0,
                                 commitment_loss_weight: float = 1.0,
-                                obj_loss_weight: float = 1.0):
+                                obj_loss_weight: float = 1.0, mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, ul_img) -> (state,
     metrics)``: plain CPS plus a binary object loss (reference
     deprecated/train_with_test_object_loss.py).
@@ -375,13 +399,16 @@ def make_objloss_cps_train_step(criterion, object_criterion, *, num_classes: int
     def to_obj_pred(pred):
         return torch.sum(torch.softmax(pred, dim=1)[:, 1:], dim=1, keepdim=True)
 
+    rows = batch_size // (1 if mesh is None else mesh.n_data)  # this rank's unlabeled rows
+
     @full_f32()
+    @on_mesh(mesh)
     def train_step(state: CPSTrainState, l_img, l_target, ul_img):
         (pred_sup_1, pred_sup_2), (pred_1, pred_2), (pseudo_1, pseudo_2), commits = \
             _plain_passes(state, l_img, ul_img, split)
         with torch.no_grad():
-            obj_t1 = (torch.cat([l_target, pseudo_1[-batch_size:]]) != 0).long()
-            obj_t2 = (torch.cat([l_target, pseudo_2[-batch_size:]]) != 0).long()
+            obj_t1 = (torch.cat([l_target, pseudo_1[-rows:]]) != 0).long()
+            obj_t2 = (torch.cat([l_target, pseudo_2[-rows:]]) != 0).long()
         cps_loss = criterion(pred_1, pseudo_2) + criterion(pred_2, pseudo_1)
         sup_loss = criterion(pred_sup_1, l_target) + criterion(pred_sup_2, l_target)
         obj_loss = (object_criterion(to_obj_pred(pred_1), obj_t2)
@@ -398,7 +425,8 @@ def make_objloss_cps_train_step(criterion, object_criterion, *, num_classes: int
 
 def make_angularv3_cps_train_step(dice_loss, *, num_classes: int, cps_loss_weight: float = 1.0,
                                   commitment_loss_weight: float = 1.0,
-                                  prototype_loss_weight: float = 0.01, ce_weight=None):
+                                  prototype_loss_weight: float = 0.01, ce_weight=None,
+                                  mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, ul_img, th) -> (state,
     metrics)``: angular-v3 CPS (reference deprecated/train_angularv3.py)
     for ``vqreptunetangularv3``.
@@ -422,6 +450,7 @@ def make_angularv3_cps_train_step(dice_loss, *, num_classes: int, cps_loss_weigh
         return torch.where(torch.amax(pred, dim=1) > th, label, torch.full_like(label, IGNORE))
 
     @full_f32()
+    @on_mesh(mesh)
     def train_step(state: CPSTrainState, l_img, l_target, ul_img, th):
         _, outs = _gt_passes(state, l_img, l_target, ul_img, ul_img, sup_args=("labeled", 0.0),
                              unsup_args=("unlabeled", th), argmax=False)
@@ -447,7 +476,7 @@ def make_angularv3_cps_train_step(dice_loss, *, num_classes: int, cps_loss_weigh
 
 def make_supcon_cps_train_step(criterion, *, num_classes: int, cps_loss_weight: float = 1.0,
                                commitment_loss_weight: float = 1.0,
-                               sup_con_loss_weight: float = 1.0):
+                               sup_con_loss_weight: float = 1.0, mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, ul_img) -> (state,
     metrics)``: SupCon CPS (reference deprecated/train_supcon_unet.py) for
     ``supconvqunet``.
@@ -460,6 +489,7 @@ def make_supcon_cps_train_step(criterion, *, num_classes: int, cps_loss_weight: 
     iou_list."""
 
     @full_f32()
+    @on_mesh(mesh)
     def train_step(state: CPSTrainState, l_img, l_target, ul_img):
         _, outs = _gt_passes(state, l_img, l_target, ul_img, ul_img, sup_args=("label",),
                              unsup_args=(None,))
@@ -497,7 +527,8 @@ def overlapped_patches(ul_img: torch.Tensor, overlap_size: int = 240):
 
 
 def make_semiweed_train_step(criterion, *, num_classes: int, overlap_size: int = 240,
-                             ce_loss_weight: float = 1.0, dc_loss_weight: float = 1.0):
+                             ce_loss_weight: float = 1.0, dc_loss_weight: float = 1.0,
+                             mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, ul_img, case1, case2,
     dropout=(None, None, None)) -> (state, metrics)``: SemiWeedNet's
     contrastive semi-supervision (reference
@@ -515,6 +546,7 @@ def make_semiweed_train_step(criterion, *, num_classes: int, overlap_size: int =
     iou_list."""
 
     @full_f32()
+    @on_mesh(mesh)
     def train_step(state: TrainState, l_img, l_target, ul_img, case1: int, case2: int,
                    dropout=(None, None, None)):
         model = state.model
@@ -532,7 +564,7 @@ def make_semiweed_train_step(criterion, *, num_classes: int, overlap_size: int =
         dc = dc_loss(mlp1, mlp2)
         loss = ce_loss_weight * ce + dc_loss_weight * dc
         state.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        backward(loss, model)
         set_lr(state.opt, state.schedule(state.step))
         state.opt.step()
         state.step += 1
@@ -554,7 +586,7 @@ def confident_pseudo(pred: torch.Tensor, threshold: float) -> torch.Tensor:
 
 
 def make_unimatch_train_step(*, num_classes: int, confidence_threshold: float = 0.95,
-                             ce_weight=None):
+                             ce_weight=None, mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, ul_img, mask_1, mask_2,
     dropout=None, fp_dropout=None) -> (state, metrics)``: UniMatch
     (reference deprecated/train_UniMatch.py) for one ``unimatch`` network
@@ -585,6 +617,7 @@ def make_unimatch_train_step(*, num_classes: int, confidence_threshold: float = 
         return cross_entropy_loss(pred, target, ignore_index=IGNORE, weight=ce_weight)
 
     @full_f32()
+    @on_mesh(mesh)
     def train_step(state: TrainState, l_img, l_target, ul_img, mask_1, mask_2, dropout=None,
                    fp_dropout=None):
         model = state.model
@@ -609,7 +642,7 @@ def make_unimatch_train_step(*, num_classes: int, confidence_threshold: float = 
         loss_u_fp = ce(pred_fp, confident_pseudo(pred_u, confidence_threshold))
         loss = (sup + 0.25 * loss_u_1 + 0.25 * loss_u_2 + 0.5 * loss_u_fp) / 2
         state.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        backward(loss, model)
         set_lr(state.opt, state.schedule(state.step))
         state.opt.step()
         state.step += 1
@@ -627,12 +660,13 @@ def salient_loss(sal_pred: torch.Tensor, sal_map: torch.Tensor) -> torch.Tensor:
     map resized to (h, w) with half-pixel nearest indexing
     (``jax.image.resize(..., "nearest")``)."""
     target = resize_nearest_exact(sal_map, tuple(sal_pred.shape[-2:]))[:, None]
-    return torch.mean((sal_pred.float() - target) ** 2)
+    return batch_mean((sal_pred.float() - target) ** 2)
 
 
 def make_salient_cps_train_step(*, num_classes: int, cps_loss_weight: float = 1.0,
                                 commitment_loss_weight: float = 1.0,
-                                auxiliary_loss_weight: float = 1.0, ce_weight=None):
+                                auxiliary_loss_weight: float = 1.0, ce_weight=None,
+                                mesh: Optional[Mesh] = None):
     """Build ``train_step(state, l_img, l_target, l_sal, ul_img, ul_sal) ->
     (state, metrics)``: salient-loss CPS (reference
     deprecated/train_salient_loss.py) for two ``VQUnetwithSalientloss``
@@ -653,6 +687,7 @@ def make_salient_cps_train_step(*, num_classes: int, cps_loss_weight: float = 1.
         return cross_entropy_loss(pred, target, ignore_index=IGNORE, weight=ce_weight)
 
     @full_f32()
+    @on_mesh(mesh)
     def train_step(state: CPSTrainState, l_img, l_target, l_sal, ul_img, ul_sal):
         m1, m2 = state.model_1, state.model_2
         modes = (m1.training, m2.training)
